@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-Drives the port's per-frame visual tracking path (ORB extraction ->
-finish_features -> coarse stage -> local stage) over a rendered EuRoC-size
-sequence, builds the hand kernels from `monoorbslam3_tpu_torch/csrc/`, shows
-that the drive launched them, and holds each kernel against its plain
-PyTorch version at the shapes the drive gave it.
+Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
+port's three paths, each with the kernel launch counts set to 0 just
+before it and read just after:
+
+1. tracking: the per-frame visual tracking path (ORB extraction ->
+   finish_features -> coarse stage -> local stage) over 40 rendered
+   EuRoC-size frames (kernels K1, K2);
+2. mapper search: the keyframe searches of local mapping on rendered
+   EuRoC-size keyframes, triangulation of a keyframe pair and the fuse of
+   the new points into a third keyframe (K3);
+3. window BA: `schur_ba` on the `bench.py` window (24+8 keyframes, 2048
+   points, 6144 observations), flat and grouped layouts (K4).
+
+Then it holds each kernel against its plain PyTorch version on the inputs
+its path gave it, and prints local-BA iterations/s.
 
     python3 chip_smoke.py    # needs one card; no arguments
 
 Exits non-zero, without the final `{"ok": true, ...}` line, when no CUDA
 device is present, when a kernel fails to build, launch or agree, when a
-kernel of the path was never launched by the drive, when a frame after the
-first keeps fewer than 12 inliers, or when the median pose error exceeds
-its bound. Prints, before the last line, the card's name and power limit
-and one JSON object with each kernel's launches, error and times.
+kernel was never launched by its path, when a tracked frame keeps fewer
+than 12 inliers or the median pose error exceeds its bound, when the
+mapper search or the BA costs leave the bounds set by the JAX package's
+run of the same inputs on the CPU. Prints, before the last line, the
+card's name and power limit and one JSON object with each kernel's
+launches, error and times.
 """
 
 from __future__ import annotations
@@ -57,6 +69,34 @@ VIEW_COS_GATE = 0.5  # tracking.py:282
 # 1.41 mm and 0.0205 deg; PERF.md records the run), rounded up
 MAX_MEDIAN_T_ERR_M = 0.003
 MAX_MEDIAN_R_ERR_DEG = 0.05
+
+
+# mapper search: keyframes at t = 0 and 0.5 s (0.87 m apart on the circle,
+# the wall ~6 m away) are triangulated; the new points are fused into the
+# keyframe at 0.25 s, with the fuse radius of LocalMapping._dispatch_fuse
+KF_TIMES = (0.0, 0.5, 0.25)
+FUSE_RADIUS = 4.0
+# bounds from the same search through the JAX package on the CPU
+# (experiments/port_mapper_jax.py: 262 points accepted, median 3D error
+# 71.5 mm, 217 fused; PERF.md records the run): 90% of the counts, 1.5x the
+# error. At ~6-10 m depth over a 0.87 m baseline, a half-pixel keypoint
+# error moves a point by several cm along the ray.
+MIN_ACCEPTED = 235
+MAX_MEDIAN_TRI_ERR_M = 0.107
+MIN_FUSED = 195
+
+# window BA: 10 LM iterations on bench_window.build_problem(seed=0); the
+# JAX package's costs for the same window on the CPU
+# (experiments/port_mapper_jax.py; PERF.md records the run)
+BA_ITERS = 10
+BA_VARIANTS = {"flat_deferred": dict(deferred=True, grouped_obs=0),
+               "grouped_deferred": dict(deferred=True, grouped_obs=192),
+               "flat_parallel": dict(deferred=False, grouped_obs=0)}
+JAX_BA_COST0 = 200982.5625
+JAX_BA_COST = {"flat_deferred": 1118.5657, "grouped_deferred": 1118.5652,
+               "flat_parallel": 1118.5652}
+BA_COST0_RTOL = 1e-4
+BA_COST_RTOL = 1e-3
 
 
 def _orthonormalize(R):
@@ -215,12 +255,124 @@ def drive(pipe, n_frames=40, log=print):
     return records
 
 
+def mapper_search(pipe, log=print):
+    """Render the KF_TIMES keyframes, triangulate the first two through
+    `pipe`, fuse the accepted points into the third, and score both against
+    the renderer's true world points. Returns a summary record."""
+    from monoorbslam3_tpu_torch.models.camera import Pinhole
+    from monoorbslam3_tpu_torch.sim import ImageWorld
+
+    cam_cpu = Pinhole.create(**EUROC_CAM)
+    world = ImageWorld()
+    poses, feats = [], []
+    for i, t in enumerate(KF_TIMES):
+        img = world.render(t, cam_cpu, R_BC, T_BC, rng=np.random.default_rng(100 + i))
+        R_cw, t_cw = world.pose_cw(t, R_BC, T_BC)
+        poses.append((R_cw.astype(np.float32), t_cw.astype(np.float32)))
+        feats.append(pipe.keyframe(img))
+    tri = pipe.triangulate(0, 1, poses[0], poses[1])
+    acc = np.nonzero(tri["accept"])[0]
+    X_true = world.world_points(KF_TIMES[0], cam_cpu, R_BC, T_BC, feats[0]["xy_raw"][acc])
+    tri_err = np.linalg.norm(tri["X"][acc] - X_true, axis=1)
+
+    # the new points, padded to the store's per-KF capacity (N_FEAT), as
+    # LocalMapping._dispatch_fuse packs them
+    n = min(len(acc), N_FEAT)
+    pts = np.zeros((N_FEAT, 3), np.float32)
+    pts[:n] = tri["X"][acc[:n]]
+    src = np.full(N_FEAT, -1, np.int64)
+    src[:n] = acc[:n]
+    fidx = pipe.fuse(0, pts, src, 2, poses[2])
+    fused = np.nonzero(fidx >= 0)[0]
+    X3 = world.world_points(KF_TIMES[2], cam_cpu, R_BC, T_BC, feats[2]["xy_raw"][fidx[fused]])
+    fuse_gap = np.linalg.norm(pts[fused] - X3, axis=1)
+    rec = dict(n_valid=[int(f["valid"].sum()) for f in feats],
+               n_matched=int((tri["idx"] >= 0).sum()), n_accepted=int(len(acc)),
+               median_tri_err_m=float(np.median(tri_err)) if len(acc) else float("inf"),
+               p90_tri_err_m=float(np.percentile(tri_err, 90)) if len(acc) else float("inf"),
+               n_fused=int(len(fused)),
+               median_fuse_gap_m=float(np.median(fuse_gap)) if len(fused) else float("inf"),
+               **pipe.mapper_times)
+    log(json.dumps(rec))
+    return rec
+
+
+def window_ba(device, n_runs=15, log=print):
+    """Every BA_VARIANTS solve of the bench window on `device`. Per variant:
+    one warm-up solve; one solve under the sync debug mode, which counts
+    the host syncs inside a solve and gives cost0, the converged cost and
+    the inputs of every reduced solve (K4's wrapper on the card, its plain
+    version on the CPU); then the wall time of `n_runs`
+    whole solves, each ending in the one fetch of its result and a
+    synchronize. Returns {variant: record}, with the reduced systems under
+    "systems"."""
+    import warnings
+
+    import torch
+
+    from monoorbslam3_tpu_torch.backend.solver import schur_ba
+    from monoorbslam3_tpu_torch.bench_window import build_problem
+    from monoorbslam3_tpu_torch.ops import chol_pallas
+    from monoorbslam3_tpu_torch.utils.fetch import SyncCounter, fetch
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    problem, cam = build_problem(seed=0, device=dev)
+    R_cb = torch.eye(3, device=dev)
+    t_cb = torch.zeros(3, device=dev)
+    syncs = SyncCounter()
+    out = {}
+    for name, kw in BA_VARIANTS.items():
+        def solve():
+            _, pts, info = schur_ba(problem, cam, R_cb, t_cb, n_iters=BA_ITERS, **kw)
+            return pts, info
+
+        fetch(solve()[1]["cost"], syncs)  # warm-up
+        solver = "chol_solve_cuda" if on_card else "chol_solve_plain"
+        with _Capture(chol_pallas, solver, maxlen=None) as k4, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pts, info = solve()
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        # the debug mode's own prototype notice is not a sync
+        sync_sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                         if "called a synchronizing" in str(w.message))
+        n0 = syncs.n
+        host = fetch(dict(cost0=info["cost0"], cost=info["cost"], hist=info["cost_hist"],
+                          finite=torch.isfinite(pts).all()), syncs)
+        fetches = syncs.n - n0
+        times = []
+        for _ in range(n_runs):
+            t0 = time.perf_counter()
+            pts, info = solve()
+            fetch(info["cost"], syncs)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = float(np.median(times))
+        out[name] = dict(cost0=float(host["cost0"]), cost=float(host["cost"]),
+                         cost_hist=[float(c) for c in host["hist"]],
+                         finite=bool(host["finite"]),
+                         syncs_in_solve=sum(sync_sites.values()), sync_sites=dict(sync_sites),
+                         fetches_per_solve=fetches, solve_ms=[1e3 * t for t in times],
+                         median_solve_ms=1e3 * med, iters_per_s=BA_ITERS / med,
+                         systems=list(k4.calls))
+        log(json.dumps({k: v for k, v in out[name].items() if k != "systems"} | {"variant": name}))
+    return out
+
+
 class TorchPipe:
-    """The port's tracking path on one CUDA device. `features` brings a
-    frame's features to the host (seeding only); `coarse` uploads the frame
-    and the coarse candidates, extracts, runs the coarse stage and reads its
-    result with one fetch; `local` runs the local stage on the same frame
-    with one fetch."""
+    """The port's tracking and mapper paths on one device. `features`
+    brings a frame's features to the host (seeding only); `coarse` uploads
+    the frame and the coarse candidates, extracts, runs the coarse stage
+    and reads its result with one fetch; `local` runs the local stage on
+    the same frame with one fetch. `keyframe`, `triangulate` and `fuse` are
+    the mapper search's steps, one fetch each."""
 
     def __init__(self, device):
         import torch
@@ -240,6 +392,8 @@ class TorchPipe:
         self.t_bc = self._up(T_BC.astype(np.float32))
         self.syncs = SyncCounter()
         self._feats = None
+        self._kfs = []
+        self.mapper_times = {}
 
     def _up(self, x):
         """Host array -> device tensor through pinned memory, without a
@@ -305,6 +459,51 @@ class TorchPipe:
                                 dev_coarse_ms=self._span(e1, e2))
         return out
 
+    def keyframe(self, img):
+        """Extract a keyframe's features on the device; keep them for the
+        searches and bring the raw keypoints and validity to the host."""
+        f = self._frame(img)
+        self._kfs.append(f)
+        return self._fetch({k: f[k] for k in ("xy_raw", "valid")})
+
+    def _pose(self, pose):
+        return self._up(pose[0]), self._up(pose[1])
+
+    def triangulate(self, i, j, pose_i, pose_j):
+        from monoorbslam3_tpu_torch.frontend.local_mapping import _triangulate_pair_kernel
+
+        a, b = self._kfs[i], self._kfs[j]
+        (R1, t1), (R2, t2) = self._pose(pose_i), self._pose(pose_j)
+        e0 = self._event()
+        idx, X, accept = _triangulate_pair_kernel(
+            a["xy"], a["desc"], a["valid"], a["sigma2"],
+            b["xy"], b["desc"], b["valid"], b["sigma2"], self.cam, R1, t1, R2, t2)
+        e1 = self._event()
+        out = self._fetch(dict(idx=idx, X=X, accept=accept))
+        self.mapper_times["dev_triangulate_ms"] = self._span(e0, e1)
+        return out
+
+    def fuse(self, i, pts, src, j, pose_j):
+        """Fuse points (host [P, 3]) whose descriptors are those of keyframe
+        i's features `src` (-1 = padding) into keyframe j."""
+        import torch
+
+        from monoorbslam3_tpu_torch.frontend.local_mapping import _fuse_project_kernel
+
+        a, b = self._kfs[i], self._kfs[j]
+        src_t = self._up(src)
+        valid = src_t >= 0
+        desc = torch.where(valid[:, None], a["desc"][torch.clamp(src_t, min=0)],
+                           torch.zeros_like(a["desc"][:1]))
+        R, t = self._pose(pose_j)
+        e0 = self._event()
+        idx = _fuse_project_kernel(self._up(pts), desc, valid, b["xy"], b["desc"],
+                                   b["valid"], b["sigma2"], self.cam, R, t, FUSE_RADIUS)
+        e1 = self._event()
+        out = self._fetch(idx)
+        self.mapper_times["dev_fuse_ms"] = self._span(e0, e1)
+        return out
+
     def local(self, state, cand):
         from monoorbslam3_tpu_torch.backend.problems import _identity_edge
         from monoorbslam3_tpu_torch.backend.residuals import KfState
@@ -352,26 +551,38 @@ def _time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-class _CaptureMatchInputs:
-    """Keeps the arguments of every K2 launch made inside the block, so the
-    kernel phase replays exactly the main path's inputs."""
+class _Capture:
+    """Keeps the arguments of the last `maxlen` calls of `module.name` made
+    inside the block (a kernel wrapper), so a kernel phase replays exactly
+    the inputs its path gave it."""
+
+    def __init__(self, module, name, maxlen=8):
+        self.mod, self.name, self.maxlen = module, name, maxlen
 
     def __enter__(self):
-        from monoorbslam3_tpu_torch.ops import match_pallas
-
-        self.mod, self.orig = match_pallas, match_pallas._match_rows_cuda
-        self.calls, self.n = collections.deque(maxlen=8), 0
+        self.orig = getattr(self.mod, self.name)
+        self.calls, self.n = collections.deque(maxlen=self.maxlen), 0
 
         def spy(*args):
             self.calls.append(args)
             self.n += 1
             return self.orig(*args)
 
-        match_pallas._match_rows_cuda = spy
+        setattr(self.mod, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.mod._match_rows_cuda = self.orig
+        setattr(self.mod, self.name, self.orig)
+
+
+def _zero(counts):
+    for k in counts:
+        counts[k] = 0
+
+
+def _rel(x, ref):
+    """Per-system relative error ||x - ref|| / ||ref|| over the last axis."""
+    return (x.double() - ref.double()).norm(dim=-1) / ref.double().norm(dim=-1)
 
 
 def main() -> int:
@@ -380,7 +591,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one", file=sys.stderr)
         return 2
-    from monoorbslam3_tpu_torch.ops import cuda_lib, match_pallas, pallas_kernels
+    from monoorbslam3_tpu_torch.ops import chol_pallas, cuda_lib, match_pallas, pallas_kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -400,23 +611,53 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
 
-    # -- slice drive: the main path ---------------------------------------
+    # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
-    # warm-up frame outside the counted run (first launches load modules)
+    # warm-up outside the counted runs (first launches load modules)
     pipe.features(np.zeros((EUROC_CAM["height"], EUROC_CAM["width"]), np.float32))
+    warm = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+    pallas_kernels.hamming_matrix_cuda(warm, warm)
+    chol_pallas.chol_solve_cuda(torch.eye(16, device=dev)[None], torch.ones((1, 16), device=dev))
     torch.cuda.synchronize()
-    for k in cuda_lib.launches:
-        cuda_lib.launches[k] = 0
+    _zero(cuda_lib.launches)
     pipe.syncs.n = 0
-    with _CaptureMatchInputs() as cap:
+    with _Capture(match_pallas, "_match_rows_cuda") as cap:
         records = drive(pipe)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.launches)
     syncs = pipe.syncs.n
-    print("launches in the drive:", json.dumps(launches))
+    print("launches in the tracking drive:", json.dumps(launches))
     n_fr = len(records)
     print(f"host syncs: {syncs} over {n_fr} frames + 1 seed frame "
           f"({(syncs - 1) / n_fr:.2f} per tracked frame)")
+
+    # -- path 2, mapper search: triangulate + fuse on rendered keyframes -----
+    _zero(cuda_lib.launches)
+    s0 = pipe.syncs.n
+    t0 = time.perf_counter()
+    with _Capture(pallas_kernels, "hamming_matrix_cuda") as hcap:
+        mrec = mapper_search(pipe)
+    torch.cuda.synchronize()
+    map_launches = dict(cuda_lib.launches)
+    print(f"mapper search: {time.perf_counter() - t0:.2f} s host (3 renders included), "
+          f"{pipe.syncs.n - s0} host syncs, launches {json.dumps(map_launches)}")
+    print(f"mapper bounds: accepted >= {MIN_ACCEPTED}, median 3D error <= "
+          f"{MAX_MEDIAN_TRI_ERR_M} m, fused >= {MIN_FUSED}")
+
+    # -- path 3, window BA on the bench window -----------------------------
+    _zero(cuda_lib.launches)
+    ba = window_ba(dev)
+    torch.cuda.synchronize()
+    ba_launches = dict(cuda_lib.launches)
+    print("launches in the BA runs:", json.dumps(ba_launches))
+    for name, r in ba.items():
+        print(f"window BA {name}: cost0 {r['cost0']:.4f} (JAX-CPU {JAX_BA_COST0}), cost "
+              f"{r['cost']:.4f} (JAX-CPU {JAX_BA_COST[name]}); "
+              f"local-BA {r['iters_per_s']:.2f} iters/s (median of "
+              f"{len(r['solve_ms'])} solves, {r['median_solve_ms']:.3f} ms per "
+              f"{BA_ITERS}-iteration solve, quartiles {_pct(r['solve_ms'], 25):.3f} / "
+              f"{_pct(r['solve_ms'], 75):.3f} ms); host syncs per solve: "
+              f"{r['syncs_in_solve']} inside + {r['fetches_per_solve']} fetch")
 
     # -- kernel phases at the drive's shapes ---------------------------------
     kernels = []
@@ -476,6 +717,71 @@ def main() -> int:
                         ms=big["ms"], plain_ms=big["plain_ms"]))
     print(f"K2 launches captured in the drive: {n_calls}")
 
+    # K3 on the mapper search's inputs: triangulation 1024x1024 (KF1 x KF2
+    # features) and fuse 1024x1024 (new points x KF3 features)
+    k3_rows, k3_err = [], 0.0
+    for label, a in zip(("triangulate", "fuse"), hcap.calls):
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        ref = pallas_kernels.hamming_matrix_plain(*a)
+        k3_err = max(k3_err, float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"K3 {label} disagrees with its plain version")
+        ms = _time_ms(lambda: pallas_kernels.hamming_matrix_cuda(*a))
+        pms = _time_ms(lambda: pallas_kernels.hamming_matrix_plain(*a))
+        k3_rows.append(dict(pass_=label, ms=ms, plain_ms=pms))
+        print(f"K3 {label} {a[0].shape[0]}x{a[1].shape[0]}: bit-identical; "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    if len(k3_rows) != 2:
+        raise RuntimeError(f"K3: expected the triangulate and fuse launches, got {hcap.n}")
+    kernels.append(dict(name="hamming", route="cuda",
+                        source="monoorbslam3_tpu_torch/csrc/hamming.cu",
+                        replaces="monoorbslam3_tpu/ops/pallas_kernels.py:28",
+                        launches=map_launches["hamming"], max_abs_err=k3_err,
+                        ms=k3_rows[0]["ms"], plain_ms=k3_rows[0]["plain_ms"]))
+
+    # K4 on every reduced system the BA runs solved (D = 480; G = 1 from the
+    # deferred LM, G = 2 from the parallel-lambda LM) and on seeded SPD
+    # systems (A A^T + D I) at D = 12, 96, 480
+    k4_f64, k4_plain, k4_abs = 0.0, 0.0, 0.0
+    rng = np.random.default_rng(44)
+    seeded = []
+    for D in (12, 96, 480):
+        A = rng.normal(size=(2, D, D)).astype(np.float32)
+        S = A @ A.transpose(0, 2, 1) + D * np.eye(D, dtype=np.float32)
+        seeded.append((torch.as_tensor(S, device=dev),
+                       torch.as_tensor(rng.normal(size=(2, D)).astype(np.float32), device=dev)))
+    systems = {"BA G=1": ba["flat_deferred"]["systems"], "BA G=2": ba["flat_parallel"]["systems"],
+               "seeded": seeded}
+    for label, items in systems.items():
+        e64, ep = 0.0, 0.0
+        for S, b in items:
+            x = chol_pallas.chol_solve_cuda(S, b)
+            xp = chol_pallas.chol_solve_plain(S, b)
+            x64 = torch.linalg.solve(S.double(), b.double())
+            e64 = max(e64, float(_rel(x, x64).max()))
+            ep = max(ep, float(_rel(x, xp).max()))
+            k4_abs = max(k4_abs, float((x - xp).abs().max()))
+        k4_f64, k4_plain = max(k4_f64, e64), max(k4_plain, ep)
+        print(f"K4 {label}: {len(items)} systems of {tuple(items[-1][0].shape)}; max relative "
+              f"error {e64:.3e} vs float64, {ep:.3e} vs the plain version (bound 1e-5)")
+        if e64 > 1e-5 or ep > 1e-5:
+            raise RuntimeError(f"K4 {label} exceeds 1e-5 relative error")
+    k4_rows = []
+    for label in ("BA G=1", "BA G=2"):
+        S, b = systems[label][-1]
+        ms = _time_ms(lambda: chol_pallas.chol_solve_cuda(S, b))
+        pms = _time_ms(lambda: chol_pallas.chol_solve_plain(S, b))
+        k4_rows.append(dict(pass_=label, ms=ms, plain_ms=pms))
+        print(f"K4 {label} {tuple(S.shape)}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    kernels.append(dict(name="chol_solve", route="cuda",
+                        source="monoorbslam3_tpu_torch/csrc/chol_solve.cu",
+                        replaces="monoorbslam3_tpu/ops/chol_pallas.py:40",
+                        launches=ba_launches["chol_solve"], max_abs_err=k4_abs,
+                        max_rel_err_vs_f64=k4_f64, max_rel_err_vs_plain=k4_plain,
+                        ms=k4_rows[0]["ms"], plain_ms=k4_rows[0]["plain_ms"],
+                        ms_g2=k4_rows[1]["ms"], plain_ms_g2=k4_rows[1]["plain_ms"]))
+
     # -- results ----------------------------------------------------------------
     t_errs = [r["t_err_m"] for r in records]
     r_errs = [r["r_err_deg"] for r in records]
@@ -491,9 +797,25 @@ def main() -> int:
     print("coarse matches per frame:", [r["n_match"] for r in records])
 
     failures = []
-    for k, v in launches.items():
-        if v == 0:
-            failures.append(f"kernel {k} was never launched by the drive")
+    for path, k, counts in (("tracking", "gather_patches", launches),
+                            ("tracking", "match_rows", launches),
+                            ("mapper search", "hamming", map_launches),
+                            ("window BA", "chol_solve", ba_launches)):
+        if counts[k] == 0:
+            failures.append(f"kernel {k} was never launched by the {path} path")
+    if mrec["n_accepted"] < MIN_ACCEPTED:
+        failures.append(f"mapper: {mrec['n_accepted']} points accepted < {MIN_ACCEPTED}")
+    if mrec["median_tri_err_m"] > MAX_MEDIAN_TRI_ERR_M:
+        failures.append(f"mapper: median 3D error {mrec['median_tri_err_m']} m")
+    if mrec["n_fused"] < MIN_FUSED:
+        failures.append(f"mapper: {mrec['n_fused']} points fused < {MIN_FUSED}")
+    for name, r in ba.items():
+        if not r["finite"]:
+            failures.append(f"window BA {name}: non-finite points")
+        if abs(r["cost0"] - JAX_BA_COST0) > BA_COST0_RTOL * JAX_BA_COST0:
+            failures.append(f"window BA {name}: cost0 {r['cost0']} vs {JAX_BA_COST0}")
+        if abs(r["cost"] - JAX_BA_COST[name]) > BA_COST_RTOL * JAX_BA_COST[name]:
+            failures.append(f"window BA {name}: cost {r['cost']} vs {JAX_BA_COST[name]}")
     for r in records:
         if r["n_inliers"] < MIN_INLIERS:
             failures.append(f"frame {r['frame']}: {r['n_inliers']} inliers < {MIN_INLIERS}")

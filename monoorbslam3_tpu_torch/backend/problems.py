@@ -18,17 +18,13 @@ from ..utils import lie
 from . import residuals as res
 from . import solver
 from .residuals import KfState, PreintEdge
+from .solver import _take
 
 CHI2_MONO = 5.991
 # frame-level association gate (see the JAX module for why it is looser
 # than the BA threshold)
 CHI2_FRAME_DROP = 16.0
 LAMBDA_FACTORS = (0.03, 1.0, 30.0, 900.0)
-
-
-def _take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """a[i] for a 0-d index tensor, without a host read of i."""
-    return a.index_select(0, i.reshape(1)).squeeze(0)
 
 
 def _pose_optimize_impl(

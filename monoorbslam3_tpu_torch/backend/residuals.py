@@ -1,11 +1,11 @@
-"""Residual library, visual part (counterpart of
-`monoorbslam3_tpu/backend/residuals.py`).
+"""Residual library (counterpart of `monoorbslam3_tpu/backend/residuals.py`):
+the visual reprojection residual, the inertial preintegration residual,
+the bias random walk and the diagonal prior.
 
 State conventions (CameraImuPose, G2oTypes.cpp:10-25): body state R_wb,
 t_wb, v, bg, ba; camera pose R_cw = R_cb R_wb^T, t_cw = t_cb - R_cw t_wb;
-right-multiplicative 15-dim tangent [dphi, dt, dv, dbg, dba]. The inertial
-residuals and `PreintEdge.from_preintegrated` join with the IMU slice;
-`PreintEdge` is here as the plain record the pose LM's signature takes.
+right-multiplicative 15-dim tangent [dphi, dt, dv, dbg, dba].
+`PreintEdge.from_preintegrated` joins with the IMU preintegration slice.
 """
 
 from __future__ import annotations
@@ -15,7 +15,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.imu import GRAVITY_VALUE
 from ..utils import lie
+
+G_I = np.array([0.0, 0.0, -GRAVITY_VALUE], np.float32)
+
+
+def gravity(device) -> torch.Tensor:
+    """G_I as a float32 tensor, made on the device by kernels alone (a copy
+    from host memory, or an element assignment, waits for the device's
+    queue)."""
+    axis = torch.arange(3, device=device) == 2
+    return axis.to(torch.float32) * float(G_I[2])
 
 
 class KfState(NamedTuple):
@@ -85,6 +96,47 @@ class PreintEdge(NamedTuple):
     ba0: torch.Tensor
     dt: torch.Tensor  # [...]
     L_inv: torch.Tensor  # [..., 9, 9] inverse Cholesky factor (whitener)
+
+    def corrected(self, bg: torch.Tensor, ba: torch.Tensor):
+        """First-order bias-corrected deltas (Imu.cpp:182-204)."""
+        dbg = bg - self.bg0
+        dba = ba - self.ba0
+        mv = lambda M, x: torch.einsum("...ij,...j->...i", M, x)
+        dR = self.dR @ lie.exp_so3(mv(self.JRg, dbg))
+        dV = self.dV + mv(self.JVg, dbg) + mv(self.JVa, dba)
+        dP = self.dP + mv(self.JPg, dbg) + mv(self.JPa, dba)
+        return dR, dV, dP
+
+
+def inertial_residual(s1: KfState, s2: KfState, edge: PreintEdge,
+                      whiten: bool = True) -> torch.Tensor:
+    """9-D preintegration residual between consecutive states (EdgeInertial,
+    G2oTypes.cpp:358-445), whitened by the covariance Cholesky."""
+    dR, dV, dP = edge.corrected(s1.bg, s1.ba)
+    Rb1w = s1.R_wb.transpose(-1, -2)
+    dt = edge.dt[..., None]
+    g = gravity(dt.device)
+    er = lie.log_so3(dR.transpose(-1, -2) @ Rb1w @ s2.R_wb)
+    ev = torch.einsum("...ij,...j->...i", Rb1w, s2.v - s1.v - g * dt) - dV
+    ep = torch.einsum("...ij,...j->...i", Rb1w,
+                      s2.t_wb - s1.t_wb - s1.v * dt - 0.5 * g * dt * dt) - dP
+    r = torch.cat([er, ev, ep], dim=-1)
+    if whiten:
+        r = torch.einsum("...ij,...j->...i", edge.L_inv, r)
+    return r
+
+
+def bias_walk_residual(s1: KfState, s2: KfState,
+                       inv_sigma_walk: torch.Tensor) -> torch.Tensor:
+    """6-D random-walk residual between consecutive KFs (EdgeBiasWalk,
+    G2oTypes.h:452-483), pre-whitened by the walk stddev."""
+    return torch.cat([s2.bg - s1.bg, s2.ba - s1.ba], dim=-1) * inv_sigma_walk
+
+
+def prior_residual(x: torch.Tensor, x0: torch.Tensor,
+                   inv_sigma: torch.Tensor) -> torch.Tensor:
+    """Whitened prior (EdgePriori3D, G2oTypes.h:324-343)."""
+    return (x - x0) * inv_sigma
 
 
 def huber_weight(chi2: torch.Tensor, delta2: float) -> torch.Tensor:

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .backend.residuals import KfState
+from .backend.residuals import KfState, PreintEdge
+from .backend.solver import BAProblem
 from .models.camera import Pinhole
 
 
@@ -53,5 +54,29 @@ def pinhole(cam, device="cpu") -> Pinhole:
 
 
 def kf_state(s, device="cpu") -> KfState:
-    """(R_wb, t_wb, v, bg, ba) arrays -> KfState of float32 tensors."""
+    """(R_wb, t_wb, v, bg, ba) arrays, single or batched over leading axes
+    -> KfState of float32 tensors."""
     return KfState(*(tensor(np.asarray(a, np.float32), device) for a in s))
+
+
+def preint_edge(e, device="cpu") -> PreintEdge:
+    """A PreintEdge's twelve fields (single or batched) -> the port's
+    record of float32 tensors."""
+    return PreintEdge(*(tensor(np.asarray(a, np.float32), device) for a in e))
+
+
+def ba_problem(p, device="cpu") -> BAProblem:
+    """A BAProblem's fields (the JAX record, or numpy arrays in its field
+    order) -> the port's BAProblem. Index arrays become int64, masks bool,
+    the rest float32."""
+    idx = lambda a: torch.as_tensor(np.array(a, np.int64), device=device)
+    mask = lambda a: torch.as_tensor(np.array(a, bool), device=device)
+    f32 = lambda a: tensor(np.asarray(a, np.float32), device)
+    return BAProblem(
+        kf=kf_state(p.kf, device), kf_dof=f32(p.kf_dof), points=f32(p.points),
+        pt_active=mask(p.pt_active), obs_kf=idx(p.obs_kf), obs_pt=idx(p.obs_pt),
+        obs_uv=f32(p.obs_uv), obs_inv_sigma2=f32(p.obs_inv_sigma2),
+        obs_valid=mask(p.obs_valid), ie_i=idx(p.ie_i), ie_j=idx(p.ie_j),
+        ie_edge=preint_edge(p.ie_edge, device), ie_valid=mask(p.ie_valid),
+        walk_inv_sigma=f32(p.walk_inv_sigma), walk_valid=mask(p.walk_valid),
+        prior_inv_sigma=f32(p.prior_inv_sigma), prior_ref=kf_state(p.prior_ref, device))

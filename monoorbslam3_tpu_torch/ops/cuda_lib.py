@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The kernels are compiled with `nvcc` for `sm_90a` into one shared library
-with a plain C interface, loaded with ctypes. The library builds from the
-package's own sources at first use, into `monoorbslam3_tpu_torch/_build/`,
-and rebuilds when a source is newer than it. A failed build or load raises;
-there is no fallback.
+The kernels are compiled with `nvcc` for `sm_90a`, one process per source,
+all started together, then linked into one shared library with a plain C
+interface, loaded with ctypes. The library builds from the package's own
+sources at first use, into `monoorbslam3_tpu_torch/_build/`, and rebuilds
+when a source is newer than it. A failed build or load raises; there is no
+fallback.
 
 `launches` counts, per kernel, the launches its wrapper made: each wrapper
 adds one right where it launches, nowhere else.
@@ -24,9 +25,9 @@ BUILD = _PKG / "_build"
 LIB = BUILD / "libmonoorb_kernels.so"
 BUILD_LOG = BUILD / "nvcc.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC"]
 
-launches = {"gather_patches": 0, "match_rows": 0}
+launches = {"gather_patches": 0, "match_rows": 0, "hamming": 0, "chol_solve": 0}
 
 _lib = None
 
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "match_rows_f32": [_P, _P, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P],
+    # desc_a, N, desc_b, M, out, stream
+    "hamming_i32": [_P, _I, _P, _I, _P, _P],
+    # S, b, G, D, work, x, stream
+    "chol_solve_f32": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 
@@ -62,12 +67,31 @@ def build() -> Path:
             and LIB.stat().st_mtime >= max(p.stat().st_mtime for p in deps)):
         return LIB
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    tmp = LIB.with_suffix(f".{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    BUILD_LOG.write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB)
     return LIB
 

@@ -18,15 +18,17 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .matching import hamming_matrix, node_gate
+from .matching import node_gate
+from .pallas_kernels import hamming_matrix_plain
 
 INF = 1e9
 
 
 def _match_rows_plain(desc_a, desc_b, ax, ay, r2a, ga, va, bx, by, r2b, gb, vb):
     """Row-side stats (best [N] f32, second [N] f32, idx [N] i32), with the
-    first occurrence winning ties."""
-    d = hamming_matrix(desc_a, desc_b).to(torch.float32)
+    first occurrence winning ties. Plain throughout: the Hamming block is
+    K3's plain version on every device."""
+    d = hamming_matrix_plain(desc_a, desc_b).to(torch.float32)
     dx = ax[:, None] - bx[None, :]
     dy = ay[:, None] - by[None, :]
     q = dx * dx + dy * dy

@@ -1,9 +1,11 @@
 """Batched Hamming matching (counterpart of `monoorbslam3_tpu/ops/matching.py`).
 
 Descriptors are [K, 8] 32-bit words held in int32 (torch's uint32 lacks
-most ops). The distance is XOR + popcount in integer ops, exact. The JAX
-package rides the TPU's matrix unit with a +-1 bf16 product instead, which
-is exact too, so both give the same integers.
+most ops). The distance is XOR + popcount in integer ops, exact: on a CUDA
+tensor the hand kernel K3 (`pallas_kernels.hamming_matrix_cuda`), on a CPU
+tensor its plain SWAR version. The JAX package rides the TPU's matrix unit
+with a +-1 bf16 product instead, which is exact too, so both give the same
+integers.
 
 Thresholds follow ORBMatcher.cpp:13-15: TH_LOW=50, TH_HIGH=100,
 HISTO_LENGTH=30.
@@ -16,6 +18,7 @@ import math
 import torch
 
 from .fast import top_k_stable
+from .pallas_kernels import hamming_matrix_pallas
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -23,21 +26,10 @@ HISTO_LENGTH = 30
 BIG = 1 << 20
 
 
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of int32 words (SWAR). `>>` is arithmetic on int32; each
-    mask clears the sign bits it drags in, so bit 31 counts once."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    x = x + (x >> 8)
-    x = x + (x >> 16)
-    return x & 0x3F
-
-
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """[N, 8] i32 x [M, 8] i32 -> [N, M] int32 Hamming distances."""
-    x = torch.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
-    return popcount32(x).sum(dim=-1, dtype=torch.int32)
+    """[N, 8] i32 x [M, 8] i32 -> [N, M] int32 Hamming distances (K3 on a
+    CUDA tensor, its plain version on a CPU tensor)."""
+    return hamming_matrix_pallas(desc_a, desc_b)
 
 
 def rotation_consistency_mask(angles_a, angles_b, match_idx, matched,
@@ -83,6 +75,36 @@ def masked_nn_match(dists, pair_mask, max_dist=TH_LOW, ratio=0.9,
     idx_out = torch.where(ok, best_idx, torch.full_like(best_idx, -1))
     dist = torch.where(ok, best, torch.full_like(best, BIG))
     return idx_out.to(torch.int32), dist
+
+
+def window_mask(xy_a, xy_b, valid_a, valid_b, radius):
+    """[N,2] x [M,2] -> [N,M] bool: |dx|<r and |dy|<r (init search window,
+    ORBMatcher.cpp:47-57)."""
+    dx = torch.abs(xy_a[:, None, 0] - xy_b[None, :, 0])
+    dy = torch.abs(xy_a[:, None, 1] - xy_b[None, :, 1])
+    return (dx < radius) & (dy < radius) & valid_a[:, None] & valid_b[None, :]
+
+
+def projection_mask(proj_uv, proj_valid, xy_b, valid_b, radius,
+                    level_b=None, level_min=None, level_max=None):
+    """Circular search-region mask for projection-guided matching
+    (ORBMatcher.cpp:203-415): predicted projections [N, 2] with validity
+    [N] against target keypoints [M, 2] with validity [M], per-source
+    radius [N]; optional target-level band [level_min, level_max]."""
+    dx = proj_uv[:, None, 0] - xy_b[None, :, 0]
+    dy = proj_uv[:, None, 1] - xy_b[None, :, 1]
+    m = (dx * dx + dy * dy) < (radius[:, None] ** 2)
+    m &= proj_valid[:, None] & valid_b[None, :]
+    if level_b is not None:
+        m &= (level_b[None, :] >= level_min[:, None]) & (level_b[None, :] <= level_max[:, None])
+    return m
+
+
+def node_mask(words_a, words_b, valid_a, valid_b):
+    """Vocabulary-node equality mask, the dense analog of iterating shared
+    FeatureVector nodes in SearchByBow (ORBMatcher.cpp:131-185)."""
+    return ((words_a[:, None] == words_b[None, :]) & valid_a[:, None]
+            & valid_b[None, :] & (words_a[:, None] >= 0))
 
 
 def node_gate(groups_a, groups_b):

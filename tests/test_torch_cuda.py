@@ -76,3 +76,50 @@ def test_match_kernel_matches_plain(cuda, shape):
         assert cuda_lib.launches["match_rows"] == n0 + 1
         for a, b in zip(out, _match_rows_plain(*args)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1024, 1024), (300, 513), (1, 70), (65, 1)])
+def test_hamming_kernel_matches_plain(cuda, shape):
+    """K3 at the mapper's shape and at ragged ones (not multiples of the
+    64 x 64 tile): bit-identical to the plain XOR + popcount."""
+    from monoorbslam3_tpu_torch.ops import pallas_kernels as pk
+
+    rng = np.random.default_rng(21)
+    a = rng.integers(0, 2**32, (shape[0], 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (shape[1], 8), dtype=np.uint32)
+    b[: min(shape) // 2] = a[: min(shape) // 2]  # zero distances
+    ta = torch.as_tensor(a.view(np.int32), device=cuda)
+    tb = torch.as_tensor(b.view(np.int32), device=cuda)
+    n0 = cuda_lib.launches["hamming"]
+    out = pk.hamming_matrix_pallas(ta, tb)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["hamming"] == n0 + 1
+    assert torch.equal(out, pk.hamming_matrix_plain(ta, tb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [12, 96, 480])
+def test_chol_kernel_matches_f64(cuda, D):
+    """K4 on seeded SPD systems (A A^T + D I, as tests/test_pallas.py builds
+    them), batched G = 2: relative error below 1e-5 against a float64
+    solve, and within 1e-5 of the plain version."""
+    from monoorbslam3_tpu_torch.ops import chol_pallas as cp
+
+    rng = np.random.default_rng(D)
+    S = np.empty((2, D, D), np.float32)
+    for g in range(2):
+        A = rng.normal(size=(D, D)).astype(np.float32)
+        S[g] = A @ A.T + D * np.eye(D, dtype=np.float32)
+    b = rng.normal(size=(2, D)).astype(np.float32)
+    tS, tb = torch.as_tensor(S, device=cuda), torch.as_tensor(b, device=cuda)
+    n0 = cuda_lib.launches["chol_solve"]
+    x = cp.chol_solve(tS, tb)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["chol_solve"] == n0 + 1
+    xp = cp.chol_solve_plain(tS, tb).cpu().numpy().astype(np.float64)
+    x = x.cpu().numpy().astype(np.float64)
+    for g in range(2):
+        ref = np.linalg.solve(S[g].astype(np.float64), b[g].astype(np.float64))
+        assert np.linalg.norm(x[g] - ref) / np.linalg.norm(ref) < 1e-5
+        assert np.linalg.norm(x[g] - xp[g]) / np.linalg.norm(xp[g]) < 1e-5
