@@ -12,10 +12,14 @@ before it and read just after:
    EuRoC-size keyframes, triangulation of a keyframe pair and the fuse of
    the new points into a third keyframe (K3);
 3. window BA: `schur_ba` on the `bench.py` window (24+8 keyframes, 2048
-   points, 6144 observations), flat and grouped layouts (K4).
+   points, 6144 observations), flat and grouped layouts (K4, its cluster
+   route).
 
 Then it holds each kernel against its plain PyTorch version on the inputs
-its path gave it, and prints local-BA iterations/s.
+its path gave it, and prints local-BA iterations/s. K4 is also held to
+float64 on seeded SPD systems up to the full polish's D = 1440 (its
+large-D route), and both of its routes must return all-NaN, as the plain
+version does, for systems that are not positive definite.
 
     python3 chip_smoke.py    # needs one card; no arguments
 
@@ -97,6 +101,36 @@ JAX_BA_COST = {"flat_deferred": 1118.5657, "grouped_deferred": 1118.5652,
                "flat_parallel": 1118.5652}
 BA_COST0_RTOL = 1e-4
 BA_COST_RTOL = 1e-3
+
+
+# K4 phase: seeded systems beside the BA's own (D = 465 is ragged, K = 31;
+# D = 768 is the cluster route's capacity on an H100 and 769 the first D
+# past it; D = 1440 is the full polish's K = 96)
+K4_SPD_DIMS = (12, 96, 465, 480, 768, 769, 1440)
+K4_RTOL = 1e-5
+
+
+def seeded_spd(D, rng, G=1):
+    """G SPD systems A A^T + D I (tests/test_pallas.py's construction) and
+    right-hand sides, float32 numpy."""
+    A = rng.normal(size=(G, D, D)).astype(np.float32)
+    S = A @ A.transpose(0, 2, 1) + D * np.eye(D, dtype=np.float32)
+    return S, rng.normal(size=(G, D)).astype(np.float32)
+
+
+def seeded_not_spd(D, rng, kind):
+    """Q diag(ev) Q^T with Q from the QR of a seeded normal matrix:
+    "indefinite" has ev = linspace(1, 2, D) with its last entry -1e-3,
+    "negative definite" has ev = -linspace(1, 2, D). float32 numpy."""
+    Q, _ = np.linalg.qr(rng.normal(size=(D, D)))
+    ev = np.linspace(1.0, 2.0, D)
+    if kind == "indefinite":
+        ev[-1] = -1e-3
+    elif kind == "negative definite":
+        ev = -ev
+    else:
+        raise ValueError(kind)
+    return ((Q * ev) @ Q.T).astype(np.float32)
 
 
 def _orthonormalize(R):
@@ -742,19 +776,20 @@ def main() -> int:
 
     # K4 on every reduced system the BA runs solved (D = 480; G = 1 from the
     # deferred LM, G = 2 from the parallel-lambda LM) and on seeded SPD
-    # systems (A A^T + D I) at D = 12, 96, 480
+    # systems (A A^T + D I) at K4_SPD_DIMS, through the wrapper's dispatch
+    # on D; each held against float64 and the plain version
     k4_f64, k4_plain, k4_abs = 0.0, 0.0, 0.0
     rng = np.random.default_rng(44)
-    seeded = []
-    for D in (12, 96, 480):
-        A = rng.normal(size=(2, D, D)).astype(np.float32)
-        S = A @ A.transpose(0, 2, 1) + D * np.eye(D, dtype=np.float32)
-        seeded.append((torch.as_tensor(S, device=dev),
-                       torch.as_tensor(rng.normal(size=(2, D)).astype(np.float32), device=dev)))
+    seeded = {}
+    for D in K4_SPD_DIMS:
+        S, b = seeded_spd(D, rng, G=2)
+        seeded[f"seeded D={D}"] = [(torch.as_tensor(S, device=dev), torch.as_tensor(b, device=dev))]
     systems = {"BA G=1": ba["flat_deferred"]["systems"], "BA G=2": ba["flat_parallel"]["systems"],
-               "seeded": seeded}
+               **seeded}
+    route_launches = {}
     for label, items in systems.items():
         e64, ep = 0.0, 0.0
+        n0 = dict(cuda_lib.launches)
         for S, b in items:
             x = chol_pallas.chol_solve_cuda(S, b)
             xp = chol_pallas.chol_solve_plain(S, b)
@@ -762,25 +797,57 @@ def main() -> int:
             e64 = max(e64, float(_rel(x, x64).max()))
             ep = max(ep, float(_rel(x, xp).max()))
             k4_abs = max(k4_abs, float((x - xp).abs().max()))
+        torch.cuda.synchronize()
+        route_launches[label] = {k: cuda_lib.launches[k] - n0[k] for k in ("chol_solve", "chol_solve_l2")}
         k4_f64, k4_plain = max(k4_f64, e64), max(k4_plain, ep)
-        print(f"K4 {label}: {len(items)} systems of {tuple(items[-1][0].shape)}; max relative "
-              f"error {e64:.3e} vs float64, {ep:.3e} vs the plain version (bound 1e-5)")
-        if e64 > 1e-5 or ep > 1e-5:
-            raise RuntimeError(f"K4 {label} exceeds 1e-5 relative error")
-    k4_rows = []
-    for label in ("BA G=1", "BA G=2"):
-        S, b = systems[label][-1]
+        D = items[-1][0].shape[-1]
+        print(f"K4 {label}: {len(items)} systems of {tuple(items[-1][0].shape)}, route "
+              f"{chol_pallas.route(D, dev)} {json.dumps(route_launches[label])}; max relative "
+              f"error {e64:.3e} vs float64, {ep:.3e} vs the plain version (bound {K4_RTOL})")
+        if not (e64 <= K4_RTOL and ep <= K4_RTOL):
+            raise RuntimeError(f"K4 {label} exceeds {K4_RTOL} relative error")
+        want = "chol_solve" if chol_pallas.route(D, dev) == "cluster" else "chol_solve_l2"
+        if route_launches[label][want] != len(items) or sum(route_launches[label].values()) != len(items):
+            raise RuntimeError(f"K4 {label}: launches {route_launches[label]}, expected {want}")
+    if [chol_pallas.route(D, dev) for D in (480, 768, 769, 1440)] != ["cluster", "cluster", "l2", "l2"]:
+        raise RuntimeError("K4: D = 480 and 768 must take the cluster route, 769 and 1440 the large-D route")
+    # a system that is not positive definite, batched beside an SPD one:
+    # both routes give all-NaN for it, as the plain version does
+    for kind in ("indefinite", "negative definite"):
+        S_spd, b_spd = seeded_spd(480, rng)
+        S = torch.as_tensor(np.stack([seeded_not_spd(480, rng, kind), S_spd[0]]), device=dev)
+        b = torch.as_tensor(np.stack([np.ones(480, np.float32), b_spd[0]]), device=dev)
+        xp = chol_pallas.chol_solve_plain(S, b)
+        ref = torch.linalg.solve(S[1].double(), b[1].double())
+        for kernel, solve in (("cluster", chol_pallas.chol_solve_cluster),
+                              ("l2", chol_pallas.chol_solve_l2)):
+            x = solve(S, b)
+            torch.cuda.synchronize()
+            e = float((x[1].double() - ref).norm() / ref.norm())
+            print(f"K4 {kind} 480 beside an SPD system, {kernel} route: all-NaN "
+                  f"{bool(torch.isnan(x[0]).all())} (plain {bool(torch.isnan(xp[0]).all())}), "
+                  f"SPD neighbour {e:.3e} vs float64")
+            if not (torch.isnan(x[0]).all() and torch.isnan(xp[0]).all() and e <= K4_RTOL):
+                raise RuntimeError(f"K4 {kernel} route on the {kind} system")
+    k4_rows = {}
+    S1440, b1440 = seeded["seeded D=1440"][0]
+    for label, (S, b) in (("G1", systems["BA G=1"][-1]), ("G2", systems["BA G=2"][-1]),
+                          ("d1440", (S1440[:1], b1440[:1]))):
         ms = _time_ms(lambda: chol_pallas.chol_solve_cuda(S, b))
         pms = _time_ms(lambda: chol_pallas.chol_solve_plain(S, b))
-        k4_rows.append(dict(pass_=label, ms=ms, plain_ms=pms))
-        print(f"K4 {label} {tuple(S.shape)}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        k4_rows[label] = (ms, pms)
+        print(f"K4 {label} {tuple(S.shape)} ({chol_pallas.route(S.shape[-1], dev)} route): "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
     kernels.append(dict(name="chol_solve", route="cuda",
                         source="monoorbslam3_tpu_torch/csrc/chol_solve.cu",
                         replaces="monoorbslam3_tpu/ops/chol_pallas.py:40",
                         launches=ba_launches["chol_solve"], max_abs_err=k4_abs,
                         max_rel_err_vs_f64=k4_f64, max_rel_err_vs_plain=k4_plain,
-                        ms=k4_rows[0]["ms"], plain_ms=k4_rows[0]["plain_ms"],
-                        ms_g2=k4_rows[1]["ms"], plain_ms_g2=k4_rows[1]["plain_ms"]))
+                        ms=k4_rows["G1"][0], plain_ms=k4_rows["G1"][1],
+                        ms_g2=k4_rows["G2"][0], plain_ms_g2=k4_rows["G2"][1],
+                        ms_d1440=k4_rows["d1440"][0], plain_ms_d1440=k4_rows["d1440"][1],
+                        cluster_size=chol_pallas.cluster_shape(dev)[0],
+                        cluster_max_d=chol_pallas.cluster_shape(dev)[1]))
 
     # -- results ----------------------------------------------------------------
     t_errs = [r["t_err_m"] for r in records]
@@ -803,6 +870,8 @@ def main() -> int:
                             ("window BA", "chol_solve", ba_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
+    if ba_launches["chol_solve_l2"]:
+        failures.append("window BA: K4's large-D route ran on the D = 480 systems")
     if mrec["n_accepted"] < MIN_ACCEPTED:
         failures.append(f"mapper: {mrec['n_accepted']} points accepted < {MIN_ACCEPTED}")
     if mrec["median_tri_err_m"] > MAX_MEDIAN_TRI_ERR_M:

@@ -14,13 +14,24 @@ lands up to 8e-4 (relative) from the float64 solution, whichever library
 computes it; with the step it lands below 1e-6 (measured on the CPU on the
 bench window's systems).
 
-`chol_solve` dispatches on the device: a CUDA tensor launches the hand
-kernel (`csrc/chol_solve.cu`, one block per system); a CPU tensor takes
-`chol_solve_plain`, `torch.linalg.cholesky_ex` + `torch.cholesky_solve`
-(the JAX package's own off-TPU path is `jnp.linalg.cholesky` +
-`cho_solve`) with the same refinement step. A matrix that is not positive
-definite gives NaN in the plain version, as JAX's Cholesky does, and never
-raises (raising would need a host read of the factorization status).
+`chol_solve` dispatches on the device: a CUDA tensor launches a hand kernel
+of `csrc/chol_solve.cu`, a CPU tensor takes `chol_solve_plain`,
+`torch.linalg.cholesky_ex` + `torch.cholesky_solve` (the JAX package's own
+off-TPU path is `jnp.linalg.cholesky` + `cho_solve`) with the same
+refinement step. On the card the kernel is chosen by D (`route`):
+
+- D <= the cluster route's capacity (768 on an H100 with clusters of 8
+  blocks, `cluster_shape`): one thread-block cluster per system, the
+  factor held in the blocks' shared memory (`chol_solve_cluster`, counter
+  `chol_solve`);
+- larger D (the full polish's 1440): one block per system over a working
+  copy in global memory (`chol_solve_l2`, counter `chol_solve_l2`).
+
+Both are hand kernels; a launch either route refuses raises. A matrix that
+is not positive definite (a pivot that is not > 0, NaN included) gives an
+all-NaN solution for that system, in the plain version (`cholesky_ex`'s
+info), in both kernels and in JAX's Cholesky alike; nothing raises
+(raising would need a host read of the factorization status).
 """
 
 from __future__ import annotations
@@ -51,24 +62,63 @@ def chol_solve_plain(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None], x, torch.full_like(x, float("nan")))
 
 
-def chol_solve_cuda(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the hand kernel on the current stream: one block per system.
-    The kernel factors in a working copy, so S itself is left untouched."""
+_cluster_shape = {}
+
+
+def cluster_shape(device: torch.device) -> tuple[int, int]:
+    """(blocks per cluster, the largest D the cluster route takes) on
+    `device`: its shared memory per block decides, (8, 768) on an H100."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _cluster_shape:
+        lib = cuda_lib.lib()
+        with torch.cuda.device(key):
+            _cluster_shape[key] = (lib.chol_cluster_size(), lib.chol_cluster_max_d())
+    return _cluster_shape[key]
+
+
+def route(D: int, device: torch.device) -> str:
+    """The kernel `chol_solve_cuda` launches for systems of size D:
+    "cluster" or "l2" (the name of its launch counter is `chol_solve` or
+    `chol_solve_l2`)."""
+    return "cluster" if D <= cluster_shape(device)[1] else "l2"
+
+
+def _launch(S, b, name, counter, *extra):
+    """Flatten the batch, launch the C entry point `name` (S, b, G, D,
+    *extra, x, stream) on the current stream and count it."""
     D = S.shape[-1]
     batch = S.shape[:-2]
     Sc = S.reshape(-1, D, D).contiguous()
     G = Sc.shape[0]
-    work = torch.empty_like(Sc)
     x = torch.empty((G, D), dtype=torch.float32, device=S.device)
     if G == 0 or D == 0:
         return x.reshape(*batch, D)
     bc = b.reshape(G, D).contiguous()
-    err = cuda_lib.lib().chol_solve_f32(
-        Sc.data_ptr(), bc.data_ptr(), G, D, work.data_ptr(), x.data_ptr(),
+    extra = [e(Sc).data_ptr() for e in extra]
+    err = getattr(cuda_lib.lib(), name)(
+        Sc.data_ptr(), bc.data_ptr(), G, D, *extra, x.data_ptr(),
         torch.cuda.current_stream(S.device).cuda_stream)
-    cuda_lib.check(err, "chol_solve_f32")
-    cuda_lib.launches["chol_solve"] += 1
+    cuda_lib.check(err, name)
+    cuda_lib.launches[counter] += 1
     return x.reshape(*batch, D)
+
+
+def chol_solve_cluster(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The cluster route's kernel; raises for D above its capacity."""
+    return _launch(S, b, "chol_solve_cluster_f32", "chol_solve")
+
+
+def chol_solve_l2(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The large-D route's kernel; it factors in a working copy, so S itself
+    is left untouched."""
+    return _launch(S, b, "chol_solve_f32", "chol_solve_l2", torch.empty_like)
+
+
+def chol_solve_cuda(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the hand kernel of `route(D)`."""
+    if route(S.shape[-1], S.device) == "cluster":
+        return chol_solve_cluster(S, b)
+    return chol_solve_l2(S, b)
 
 
 def chol_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

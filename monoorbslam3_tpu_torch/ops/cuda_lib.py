@@ -27,7 +27,8 @@ BUILD_LOG = BUILD / "nvcc.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-launches = {"gather_patches": 0, "match_rows": 0, "hamming": 0, "chol_solve": 0}
+launches = {"gather_patches": 0, "match_rows": 0, "hamming": 0, "chol_solve": 0,
+            "chol_solve_l2": 0}
 
 _lib = None
 
@@ -43,6 +44,12 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     # desc_a, N, desc_b, M, out, stream
     "hamming_i32": [_P, _I, _P, _I, _P, _P],
+    # S, b, G, D, x, stream
+    "chol_solve_cluster_f32": [_P, _P, _I, _I, _P, _P],
+    # -> the cluster route's blocks per cluster
+    "chol_cluster_size": [],
+    # -> the largest D of the cluster route on the current device
+    "chol_cluster_max_d": [],
     # S, b, G, D, work, x, stream
     "chol_solve_f32": [_P, _P, _I, _I, _P, _P, _P],
 }

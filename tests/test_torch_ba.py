@@ -18,6 +18,8 @@ import pytest
 import torch
 
 import bench
+import chip_smoke
+from experiments import port_chol_cluster_emulate as chol_emulate
 from monoorbslam3_tpu.backend import residuals as jres
 from monoorbslam3_tpu.backend import solver as jsolver
 from monoorbslam3_tpu.ops.chol_pallas import chol_solve_pallas
@@ -286,6 +288,47 @@ def test_chol_solve_batched_and_not_spd():
     assert np.isnan(x[2]).all()
     with pytest.raises(ValueError):
         chol_solve(torch.as_tensor(S), torch.as_tensor(b[:, :5]))
+
+
+def test_chol_solve_not_spd_480():
+    """The semantics K4's kernels are held to: in one batch, an SPD system
+    is solved (within 1e-5 of float64), and the 480 x 480 indefinite
+    system (one eigenvalue -1e-3) and a negative definite one come out
+    all-NaN, as JAX's Cholesky solve (`solve_reduced`'s path) gives them."""
+    rng = np.random.default_rng(480)
+    S_spd, b_spd = chip_smoke.seeded_spd(480, rng)
+    S = np.stack([S_spd[0], chip_smoke.seeded_not_spd(480, rng, "indefinite"),
+                  chip_smoke.seeded_not_spd(480, rng, "negative definite")])
+    b = np.stack([b_spd[0], np.ones(480, np.float32), np.ones(480, np.float32)])
+    x = chol_solve(torch.as_tensor(S), torch.as_tensor(b)).numpy().astype(np.float64)
+    ref = np.linalg.solve(S[0].astype(np.float64), b[0].astype(np.float64))
+    assert np.linalg.norm(x[0] - ref) / np.linalg.norm(ref) < 1e-5
+    assert np.isnan(x[1]).all() and np.isnan(x[2]).all()
+    jx = np.asarray(jax.scipy.linalg.cho_solve((jnp.linalg.cholesky(jnp.asarray(S)), True),
+                                               jnp.asarray(b)[..., None]))[..., 0]
+    assert np.isfinite(jx[0]).all() and np.isnan(jx[1]).all() and np.isnan(jx[2]).all()
+
+
+def test_chol_cluster_schedule():
+    """The numpy emulation of K4's cluster schedule (rank ownership, one
+    barrier per panel, look-ahead, the folded forward pass, the rank-0
+    solves) at the ragged D = 465 (30 row blocks over 8 ranks): no tile is
+    read and written by two ranks between two barriers, every rank holds
+    the same pivot flag, and the solution lies within 1e-5 of float64; a
+    non-SPD system raises the flag and comes out all-NaN. A guard on the
+    experiment's model only: the kernel itself is held to float64 by
+    tests/test_torch_cuda.py and chip_smoke.py on the card."""
+    D = 465
+    rng = np.random.default_rng(1000 + D)
+    S, b = (a[0] for a in chip_smoke.seeded_spd(D, rng))
+    x, cl, ok = chol_emulate.cluster_solve(S, b, chol_emulate.CLUSTER)
+    ref = np.linalg.solve(S.astype(np.float64), b.astype(np.float64))
+    assert ok and np.linalg.norm(x - ref) / np.linalg.norm(ref) < 1e-5
+    T = -(-D // 16)
+    assert cl.barriers == T + 5  # load, one per panel, end of factor, 3 around the solves
+    x, _, ok = chol_emulate.cluster_solve(
+        chip_smoke.seeded_not_spd(D, rng, "indefinite"), b, chol_emulate.CLUSTER)
+    assert not ok and np.isnan(x).all()
 
 
 # ---------------------------------------------------------------------------

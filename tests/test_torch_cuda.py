@@ -99,27 +99,57 @@ def test_hamming_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [12, 96, 480])
+@pytest.mark.parametrize("D", [12, 96, 465, 480, 768, 769, 1440])
 def test_chol_kernel_matches_f64(cuda, D):
     """K4 on seeded SPD systems (A A^T + D I, as tests/test_pallas.py builds
     them), batched G = 2: relative error below 1e-5 against a float64
-    solve, and within 1e-5 of the plain version."""
+    solve, and within 1e-5 of the plain version. D up to the cluster
+    route's capacity (768 on an H100: 48 row blocks, the substitutions'
+    limit, in 228,368 bytes of shared memory a block, under the 232,448 a
+    block may take) launches the cluster kernel
+    (counter `chol_solve`); 769 and the full polish's 1440 launch the
+    large-D kernel (`chol_solve_l2`). The capacity the kernel reports is
+    the one the numpy emulation of its schedule computes."""
+    from chip_smoke import seeded_spd
+    from experiments import port_chol_cluster_emulate as emu
     from monoorbslam3_tpu_torch.ops import chol_pallas as cp
 
-    rng = np.random.default_rng(D)
-    S = np.empty((2, D, D), np.float32)
-    for g in range(2):
-        A = rng.normal(size=(D, D)).astype(np.float32)
-        S[g] = A @ A.T + D * np.eye(D, dtype=np.float32)
-    b = rng.normal(size=(2, D)).astype(np.float32)
+    S, b = seeded_spd(D, np.random.default_rng(D), G=2)
     tS, tb = torch.as_tensor(S, device=cuda), torch.as_tensor(b, device=cuda)
-    n0 = cuda_lib.launches["chol_solve"]
+    assert cp.cluster_shape(tS.device) == (emu.CLUSTER, emu.max_cluster_d(emu.CLUSTER)) == (8, 768)
+    route = "cluster" if D <= 768 else "l2"
+    counter = {"cluster": "chol_solve", "l2": "chol_solve_l2"}[route]
+    assert cp.route(D, tS.device) == route
+    n0 = dict(cuda_lib.launches)
     x = cp.chol_solve(tS, tb)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["chol_solve"] == n0 + 1
+    for k in ("chol_solve", "chol_solve_l2"):
+        assert cuda_lib.launches[k] == n0[k] + (k == counter)
     xp = cp.chol_solve_plain(tS, tb).cpu().numpy().astype(np.float64)
     x = x.cpu().numpy().astype(np.float64)
     for g in range(2):
         ref = np.linalg.solve(S[g].astype(np.float64), b[g].astype(np.float64))
         assert np.linalg.norm(x[g] - ref) / np.linalg.norm(ref) < 1e-5
         assert np.linalg.norm(x[g] - xp[g]) / np.linalg.norm(xp[g]) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["cluster", "l2"])
+@pytest.mark.parametrize("kind", ["indefinite", "negative definite"])
+def test_chol_kernel_not_spd(cuda, kernel, kind):
+    """A 480 x 480 system that is not positive definite, batched beside an
+    SPD one: both K4 kernels give all-NaN for it, as the plain version
+    does, and solve its SPD neighbour within 1e-5 of float64."""
+    from chip_smoke import seeded_not_spd, seeded_spd
+    from monoorbslam3_tpu_torch.ops import chol_pallas as cp
+
+    rng = np.random.default_rng(48)
+    S_spd, b_spd = seeded_spd(480, rng)
+    S = torch.as_tensor(np.stack([seeded_not_spd(480, rng, kind), S_spd[0]]), device=cuda)
+    b = torch.as_tensor(np.stack([np.ones(480, np.float32), b_spd[0]]), device=cuda)
+    x = {"cluster": cp.chol_solve_cluster, "l2": cp.chol_solve_l2}[kernel](S, b)
+    xp = cp.chol_solve_plain(S, b)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[0]).all() and torch.isnan(xp[0]).all()
+    ref = torch.linalg.solve(S[1].double(), b[1].double())
+    assert float((x[1].double() - ref).norm() / ref.norm()) < 1e-5
