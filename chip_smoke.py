@@ -16,12 +16,26 @@ before it and read just after:
    route).
 
 Then it holds each kernel against its plain PyTorch version on the inputs
-its path gave it, and prints local-BA iterations/s. K4 is also held to
-float64 on seeded SPD systems up to the full polish's D = 1440 (its
-large-D route), and both of its routes must return all-NaN, as the plain
-version does, for systems that are not positive definite.
+its path gave it (K2 on all eight launches of the last frame, and on
+seeded ties across column chunks), and prints local-BA iterations/s. K4
+is also held to float64 on seeded SPD systems up to the full polish's
+D = 1440 (its large-D route), and both of its routes must return all-NaN,
+as the plain version does, for systems that are not positive definite.
+
+Kernel times are device times: a sleep kernel holds the stream while the
+host enqueues 20 calls between two CUDA events (`_time_kernel`); each
+kernel's host-inclusive time per call stands beside it as `call_ms`, with
+its bound (`bound`: bytes over the HBM rate or operations over the peak
+of their type, whichever is larger) and the time of one PyTorch call that
+computes the same function, where there is one (`library_ms`).
 
     python3 chip_smoke.py    # needs one card; no arguments
+    python3 chip_smoke.py --ab OTHER/   # + A/B of K2, K3 against OTHER/*.cu
+
+K1 is timed twice: on one atlas, which stays in the L2 cache as the
+atlas the path has just built does, and cycling through copies of the
+atlas that exceed the L2 twice over; each reading stands beside the bound
+of its cache state.
 
 Exits non-zero, without the final `{"ok": true, ...}` line, when no CUDA
 device is present, when a kernel fails to build, launch or agree, when a
@@ -36,10 +50,12 @@ launches, error and times.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -108,6 +124,24 @@ BA_COST_RTOL = 1e-3
 # past it; D = 1440 is the full polish's K = 96)
 K4_SPD_DIMS = (12, 96, 465, 480, 768, 769, 1440)
 K4_RTOL = 1e-5
+
+# kernel times: TIMED_CALLS calls back to back behind a sleep kernel
+# (`_time_kernel`); SLEEP_HZ is at or above the H100's SM clock, so a hold
+# of n cycles lasts at least n / SLEEP_HZ seconds
+TIMED_CALLS = 20
+SLEEP_HZ = 2.0e9
+# published peaks of one H100 SXM, dense (NVIDIA's data sheet), for each
+# kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+# K2's float32 work a pair: q = dx*dx + dy*dy (5), q against both r^2 (2),
+# the group compare (1), the select of the gated distance (1) and the two
+# compares of the running top-2 (2)
+K2_GATE_OPS = 11
+# K2's eight launches a frame, in the order the tracking step makes them
+K2_CALLS = tuple(f"{stage} {radius} {direction}" for stage in ("coarse", "local")
+                 for radius in ("tight", "wide") for direction in ("rows", "transposed"))
 
 
 def seeded_spd(D, rng, G=1):
@@ -232,7 +266,7 @@ def drive(pipe, n_frames=40, log=print):
     from monoorbslam3_tpu_torch.models.camera import Pinhole
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    cam_cpu = Pinhole.create(**EUROC_CAM)
+    cam_cpu = Pinhole.create(**EUROC_CAM, device="cpu")
     world = ImageWorld()
     traj = world.traj
     mapw = MapWindow()
@@ -296,7 +330,7 @@ def mapper_search(pipe, log=print):
     from monoorbslam3_tpu_torch.models.camera import Pinhole
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    cam_cpu = Pinhole.create(**EUROC_CAM)
+    cam_cpu = Pinhole.create(**EUROC_CAM, device="cpu")
     world = ImageWorld()
     poses, feats = [], []
     for i, t in enumerate(KF_TIMES):
@@ -434,7 +468,7 @@ class TorchPipe:
         host wait (uint32 descriptors become their int32 view)."""
         from monoorbslam3_tpu_torch import convert
 
-        t = convert.tensor(x)
+        t = convert.tensor(x, "cpu")
         if self.dev.type != "cuda":  # CPU rehearsal of the drive
             return t
         return t.pin_memory().to(self.dev, non_blocking=True)
@@ -567,22 +601,172 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
-def _time_ms(fn, reps=20, warmup=3):
-    """Median device time of fn() over `reps` launches (CUDA events)."""
+def _time_kernel(fn, label="", n=TIMED_CALLS, reps=5, warmup=3):
+    """(device_ms, call_ms) of one fn() call.
+
+    device_ms: `torch.cuda._sleep` holds the stream while the host enqueues
+    n calls back to back between two CUDA events, so the events time the
+    device alone, not the wrapper's host time between launches. If the
+    first event had already been reached when the host finished enqueuing,
+    the hold was too short: it is doubled and the window run again. Median
+    over `reps` windows, divided by n. A function that synchronizes inside
+    (a library call reading a status back) cannot be held: past a 0.25 s
+    hold its device_ms is the median event span of single calls instead,
+    host time inside the call included, and a line says so.
+    call_ms: host clock over n calls ending in a synchronize, per call:
+    what a launch-bound caller pays for one call."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    calls = []
     for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        calls.append(1e3 * (time.perf_counter() - t0) / n)
+    call_ms = float(np.median(calls))
+    hold_s = max(2e-3, 3e-3 * call_ms * n)
+    dev = []
+    while len(dev) < reps:
+        torch.cuda._sleep(int(hold_s * SLEEP_HZ))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        covered = not a.query()
+        b.synchronize()
+        if covered:
+            dev.append(a.elapsed_time(b) / n)
+        elif hold_s < 0.25:
+            hold_s *= 2
+        else:
+            print(f"timing: {label or 'a call'} synchronizes inside; its device time is the "
+                  "event span of one call")
+            return _span_ms(fn, n), call_ms
+    return float(np.median(dev)), call_ms
+
+
+def _span_ms(fn, n):
+    """Median CUDA-event span of single fn() calls, each after a sync."""
+    import torch
+
+    spans = []
+    for _ in range(n):
+        torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        spans.append(a.elapsed_time(b))
+    return float(np.median(spans))
+
+
+def _tensor_core_ops(lib_path):
+    """{kernel: {tensor-core SASS opcode: count}} of a built library, from
+    `cuobjdump -sass`; None when cuobjdump did not run."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name and (op := next((w for w in line.split()
+                                   if w.split(".")[0].endswith("MMA")), None)):
+            ops = out.setdefault(name, {})
+            ops[op] = ops.get(op, 0) + 1
+    return out
+
+
+def bound(n_bytes, ops=()):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and, for each (count, peak) in `ops`, the operations over the
+    peak rate of their type (the types run on separate units, so the
+    largest of them, not their sum, is a bound)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max((count / peak for count, peak in ops), default=0.0)
+    t = max(t_bytes, t_ops)
+    return dict(bound_ms=1e3 * t, bound_us=1e6 * t,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(n_bytes), ops=[[float(c), p] for c, p in ops])
+
+
+def k1_bound(atlas, ys, xs, atlas_in_l2=False):
+    """K1 moves the atlas pixels its windows cover (read once; the windows
+    of neighbouring keypoints overlap), the corners, and K 48x48 windows
+    written. With `atlas_in_l2` the atlas is read from the L2 cache, not
+    from HBM, and only the corners and the windows count."""
+    import torch
+
+    ha, wa = atlas.shape
+    y0 = ys.long().clamp(0, ha - 48)
+    x0 = xs.long().clamp(0, wa - 48)
+    r = torch.arange(48, device=atlas.device)
+    cover = torch.zeros(ha * wa, dtype=torch.bool, device=atlas.device)
+    cover[((y0[:, None] + r) * wa)[:, :, None] + (x0[:, None] + r)[:, None, :]] = True
+    K = ys.shape[0]
+    read = 0 if atlas_in_l2 else 4 * int(cover.sum())
+    return bound(read + 8 * K + 4 * 48 * 48 * K)
+
+
+def k2_bound(N, M):
+    """K2 reads both sides' descriptors and five per-side vectors and
+    writes best, second and idx. Operations: the Hamming distances as a
+    depth-256 binary product (2 x 256 a pair) at the int8 tensor peak, and
+    the gate and running top-2 (K2_GATE_OPS a pair) at the float32 peak."""
+    return bound((N + M) * (32 + 5 * 4) + 12 * N,
+                 [(2 * 256 * N * M, INT8_OPS_PER_S), (K2_GATE_OPS * N * M, F32_OPS_PER_S)])
+
+
+def k3_bound(N, M):
+    """K3 reads both sides' descriptors and writes the [N, M] int32 block;
+    its operations, as a depth-256 binary product, at the int8 peak."""
+    return bound((N + M) * 32 + 4 * N * M, [(2 * 256 * N * M, INT8_OPS_PER_S)])
+
+
+def k4_bound(G, D):
+    """K4 reads S and b and writes x; a Cholesky factor (D^3/3 multiply-
+    adds), four triangular solves and the residual of the refinement step
+    (6 D^2) at the float32 peak."""
+    return bound(4 * G * (D * D + 2 * D), [(G * (2 * D ** 3 / 3 + 6 * D * D), F32_OPS_PER_S)])
+
+
+def seeded_match_ties(N, M, rng, widths=(8, 16, 32, 64, 128, 256, 512)):
+    """K2 inputs (rows then columns, as `_match_rows` takes them) whose
+    rows each find their best distance at two columns: one pair of columns
+    straddles a boundary at every multiple of each of `widths` below M,
+    the other rows' pairs lie at random columns. The spatial gate is open,
+    every descriptor valid and every group -1."""
+    import torch
+
+    da = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint32)
+    db = rng.integers(0, 2 ** 32, (M, 8), dtype=np.uint32)
+    pairs = sorted({(c - 1, c) for w in widths for c in range(w, M, w)})
+    used = {j for p in pairs for j in p}
+    free = rng.permutation([j for j in range(M) if j not in used])
+    pairs += [tuple(sorted(free[2 * k: 2 * k + 2]))
+              for k in range(max(0, min(N - len(pairs), len(free) // 2)))]
+    for r, (j1, j2) in enumerate(pairs[:N]):
+        d = da[r].copy()
+        d[r % 8] ^= np.uint32(1 << (r % 32))  # distance 1 at both columns
+        db[j1] = db[j2] = d
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    w = lambda x: torch.as_tensor(x.view(np.int32))
+    return [w(da), w(db), f(np.zeros(N)), f(np.zeros(N)), f(np.full(N, 1e9)),
+            f(np.full(N, -1.0)), f(np.ones(N)), f(np.zeros(M)), f(np.zeros(M)),
+            f(np.full(M, 1e9)), f(np.full(M, -1.0)), f(np.ones(M))]
 
 
 class _Capture:
@@ -619,8 +803,86 @@ def _rel(x, ref):
     return (x.double() - ref.double()).norm(dim=-1) / ref.double().norm(dim=-1)
 
 
-def main() -> int:
+class _OtherBuild:
+    """Inside the block every kernel wrapper launches from another build:
+    the package's library is swapped for one compiled from `src` (another
+    version of a source of csrc/, a parent's, say) into `src`'s directory.
+    The functions `src` does not define are missing inside the block."""
+
+    def __init__(self, src):
+        import ctypes
+
+        from monoorbslam3_tpu_torch.ops import cuda_lib
+
+        self.cuda_lib = cuda_lib
+        out = Path(src).with_suffix(".so")
+        proc = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o",
+                               str(out), str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+        self.lib = ctypes.CDLL(str(out))
+        for name, argtypes in cuda_lib._SIGNATURES.items():
+            if hasattr(self.lib, name):
+                getattr(self.lib, name).argtypes = argtypes
+                getattr(self.lib, name).restype = ctypes.c_int
+
+    def __enter__(self):
+        self.orig = self.cuda_lib.lib()
+        self.cuda_lib._lib = self.lib
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_lib._lib = self.orig
+
+
+def _ab_build(ab_dir, name):
+    """`_OtherBuild` of `ab_dir/name`, or None without that file."""
+    src = Path(ab_dir or "", name)
+    return _OtherBuild(src) if ab_dir and src.exists() else None
+
+
+def _ab_times(kern, other):
+    """(device_ms, call_ms, other_device_ms, other_call_ms) of `kern`
+    timed in the order other, package, package, other (`other` an
+    `_OtherBuild`), each the mean of its two windows."""
+    with other:
+        p1 = _time_kernel(kern)
+    c1, c2 = _time_kernel(kern), _time_kernel(kern)
+    with other:
+        p2 = _time_kernel(kern)
+    return ((c1[0] + c2[0]) / 2, (c1[1] + c2[1]) / 2, (p1[0] + p2[0]) / 2, (p1[1] + p2[1]) / 2)
+
+
+def _same(got, ref, label):
+    """Raise unless every output of a kernel equals its plain version's."""
     import torch
+
+    for g, r, name in zip(got, ref, ("best", "second", "idx")):
+        if not torch.equal(g, r):
+            raise RuntimeError(f"{label}: {name} disagrees with the plain version")
+
+
+def _pm1_planes(desc):
+    """[n, 8] int32 words -> [n, 256] bf16 planes, +1 for a 0 bit and -1 for
+    a 1 bit, as the JAX package unpacks them for its +-1 product."""
+    import torch
+
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
+    bits = (desc[:, :, None] >> shifts) & 1
+    return (1 - 2 * bits).reshape(desc.shape[0], 256).to(torch.bfloat16)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", metavar="DIR", default=None,
+                    help="a directory with other sources of K2 and K3 (match_rows.cu, "
+                         "hamming.cu: a parent's, say), each built and timed in turns with "
+                         "the package's on the same launches")
+    ab_dir = ap.parse_args(argv).ab
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one", file=sys.stderr)
@@ -644,6 +906,11 @@ def main() -> int:
     for line in cuda_lib.BUILD_LOG.read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
+    tc_ops = _tensor_core_ops(cuda_lib.LIB)
+    if tc_ops is None:
+        print("sass: cuobjdump did not run; the tensor-core check is not made")
+    for name, ops in (tc_ops or {}).items():
+        print(f"sass: {name}: {json.dumps(ops)}")
 
     # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
@@ -694,12 +961,22 @@ def main() -> int:
               f"{r['syncs_in_solve']} inside + {r['fetches_per_solve']} fetch")
 
     # -- kernel phases at the drive's shapes ---------------------------------
+    # Each kernel is held against its plain version on the inputs its path
+    # gave it, then timed by `_time_kernel` (device_ms: the device alone;
+    # call_ms: host-inclusive) beside its plain version, its bound and,
+    # where one PyTorch call computes the same function, that call
+    # (library_ms; the port never calls it).
     kernels = []
+    n_frames = n_fr + 1  # the seed frame is extracted too
+    floor_ms, floor_call = _time_kernel(lambda: torch.cuda._sleep(1))
+    print(f"launch floor (an empty kernel, torch.cuda._sleep(1)): device {floor_ms:.5f} ms, "
+          f"call {floor_call:.5f} ms")
+
     # K1 on the EuRoC atlas of a rendered frame, K = 1024
     from monoorbslam3_tpu_torch.models.camera import Pinhole
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    img = ImageWorld().render(0.5, Pinhole.create(**EUROC_CAM), R_BC, T_BC,
+    img = ImageWorld().render(0.5, Pinhole.create(**EUROC_CAM, device="cpu"), R_BC, T_BC,
                               rng=np.random.default_rng(5))
     atlas, ys, xs, _ = pipe.ext._detect(torch.as_tensor(img, device=dev))
     n0 = cuda_lib.launches["gather_patches"]
@@ -711,49 +988,104 @@ def main() -> int:
     k1_err = float((got - ref).abs().max())
     if not torch.equal(got, ref):
         raise RuntimeError(f"K1 gather disagrees with its plain version: {k1_err}")
-    k1_ms = _time_ms(lambda: pallas_kernels.gather_patches_cuda(atlas, ys, xs))
-    k1_plain = _time_ms(lambda: pallas_kernels.gather_patches_plain(atlas, ys, xs))
-    print(f"K1 atlas {tuple(atlas.shape)} K={ys.shape[0]}: bit-exact; "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms")
+    # the yardstick: one index into the atlas's view of all 48x48 windows,
+    # at the clamped corners
+    windows = atlas.unfold(0, 48, 1).unfold(1, 48, 1)
+    y0 = ys.long().clamp(0, atlas.shape[0] - 48)
+    x0 = xs.long().clamp(0, atlas.shape[1] - 48)
+    if not torch.equal(windows[y0, x0], ref):
+        raise RuntimeError("K1's yardstick computes another function")
+    k1_dev, k1_call = _time_kernel(lambda: pallas_kernels.gather_patches_cuda(atlas, ys, xs))
+    k1_plain, _ = _time_kernel(lambda: pallas_kernels.gather_patches_plain(atlas, ys, xs))
+    k1_lib, _ = _time_kernel(lambda: windows[y0, x0])
+    k1_b = k1_bound(atlas, ys, xs)
+    # the path's atlas was built just before K1 reads it, so the window
+    # above (20 calls on one atlas) finds it in the L2 cache as the path
+    # does: its bound reads the atlas from L2. The other reading cycles
+    # through copies of the atlas that exceed the L2 twice over, against
+    # the bound that reads every byte from HBM.
+    k1_b_l2 = k1_bound(atlas, ys, xs, atlas_in_l2=True)
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 * 2 ** 20)
+    atlases = itertools.cycle([atlas.clone() for _ in range(2 * l2_bytes // atlas.nbytes + 2)])
+    k1_cold, _ = _time_kernel(lambda: pallas_kernels.gather_patches_cuda(next(atlases), ys, xs))
+    del atlases
+    print(f"K1 atlas {tuple(atlas.shape)} K={ys.shape[0]}: bit-exact; device {k1_dev:.5f} ms "
+          f"(atlas in L2; bound {k1_b_l2['bound_us']:.3f} us, "
+          f"{k1_b_l2['bound_us'] / (1e3 * k1_dev):.0%} of it), {k1_cold:.5f} ms with the L2 "
+          f"exceeded (bound {k1_b['bound_us']:.3f} us, {k1_b['bound_ms'] / k1_cold:.0%} of it; "
+          f"{k1_b['bound_by']}, {k1_b['bytes']} B); call {k1_call:.5f} ms, plain "
+          f"{k1_plain:.5f} ms, unfold-index {k1_lib:.5f} ms")
     kernels.append(dict(name="gather_patches", route="cuda",
                         source="monoorbslam3_tpu_torch/csrc/gather_patches.cu",
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:80",
-                        launches=launches["gather_patches"], max_abs_err=k1_err,
-                        ms=k1_ms, plain_ms=k1_plain))
+                        launches=launches["gather_patches"],
+                        launches_per_frame=launches["gather_patches"] / n_frames,
+                        max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
+                        plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
+                        device_ms_l2_exceeded=k1_cold, bound_us_atlas_in_l2=k1_b_l2["bound_us"]))
 
-    # K2 on the last frame's inputs: coarse 1024x1024 and local 4096x1024,
-    # tight pass, rows and transposed
-    n_calls = cap.n
-    last = list(cap.calls)  # per frame: 2 stages x 2 radii x 2 directions
-    picks = {"coarse rows": last[0], "coarse transposed": last[1],
-             "local rows": last[4], "local transposed": last[5]}
+    # K2 on all eight launches of the last frame (K2_CALLS), and on seeded
+    # ties that straddle column-chunk boundaries; with --ab, another build
+    # of K2 (the parent's) timed in turns beside it
+    last = list(cap.calls)
+    if len(last) != len(K2_CALLS) or cap.n != len(K2_CALLS) * n_fr:
+        raise RuntimeError(f"K2: {cap.n} launches over {n_fr} frames, expected "
+                           f"{len(K2_CALLS)} a frame")
+    ab_lib = _ab_build(ab_dir, "match_rows.cu")
     k2_err, k2_rows = 0.0, []
-    for label, a in picks.items():
+    for label, a in zip(K2_CALLS, last):
         got = match_pallas._match_rows_cuda(*a)
         torch.cuda.synchronize()
         ref = match_pallas._match_rows_plain(*a)
-        for g, r, nm in zip(got, ref, ("best", "second", "idx")):
-            if not torch.equal(g, r):
-                raise RuntimeError(f"K2 {label} {nm} disagrees with the plain version")
-            k2_err = max(k2_err, float((g.double() - r.double()).abs().max()))
-        ms = _time_ms(lambda: match_pallas._match_rows_cuda(*a))
-        pms = _time_ms(lambda: match_pallas._match_rows_plain(*a))
-        shape = (a[0].shape[0], a[1].shape[0])
-        k2_rows.append(dict(pass_=label, shape=shape, ms=ms, plain_ms=pms))
-        print(f"K2 {label} {shape[0]}x{shape[1]}: bit-identical; kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, valid rows {int((a[6] > 0).sum())}, "
-              f"matched rows {int((ref[2] >= 0).sum())}")
-    big = next(r for r in k2_rows if r["pass_"] == "local rows")
+        _same(got, ref, f"K2 {label}")
+        k2_err = max(k2_err, *(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref)))
+        N, M = a[0].shape[0], a[1].shape[0]
+        kern = lambda: match_pallas._match_rows_cuda(*a)
+        row = dict(call=label, shape=[N, M], blocks=cuda_lib.lib().match_rows_blocks(N))
+        if ab_lib is None:
+            row["device_ms"], row["call_ms"] = _time_kernel(kern)
+        else:
+            with ab_lib:
+                _same(kern(), ref, f"K2 A/B build, {label}")
+            times = _ab_times(kern, ab_lib)
+            row.update(zip(("device_ms", "call_ms", "parent_device_ms", "parent_call_ms"), times))
+        row["plain_ms"], _ = _time_kernel(lambda: match_pallas._match_rows_plain(*a))
+        row.update(k2_bound(N, M))
+        k2_rows.append(row)
+        print(f"K2 {label} {N}x{M}: bit-identical; " + ", ".join(
+            f"{k} {row[k]:.5f}" for k in ("device_ms", "call_ms", "parent_device_ms",
+                                         "parent_call_ms", "plain_ms") if k in row)
+              + f", bound {row['bound_us']:.3f} us ({row['bound_by']}); {row['blocks']} blocks; valid rows "
+              f"{int((a[6] > 0).sum())}, matched rows {int((ref[2] >= 0).sum())}")
+    for N, M in ((1024, 1024), (4096, 1024), (1024, 4096), (37, 1000)):
+        args = [t.to(dev) for t in seeded_match_ties(N, M, np.random.default_rng(N + M))]
+        got = match_pallas._match_rows_cuda(*args)
+        torch.cuda.synchronize()
+        ref = match_pallas._match_rows_plain(*args)
+        _same(got, ref, f"K2 seeded ties {N}x{M}")
+        print(f"K2 seeded ties {N}x{M}: bit-identical; {int((ref[1] == ref[0]).sum())} rows "
+              f"with second == best")
+    per_frame = {k: sum(r[k] for r in k2_rows) for k in k2_rows[0]
+                 if k.endswith("_ms")}
+    print("K2 per frame, the sum over its eight launches:", json.dumps(per_frame))
+    top = max(k2_rows, key=lambda r: r["bound_ms"])
+    per_call = {k: v / len(k2_rows) for k, v in per_frame.items()}
     kernels.append(dict(name="match_rows", route="cuda",
                         source="monoorbslam3_tpu_torch/csrc/match_rows.cu",
                         replaces="monoorbslam3_tpu/ops/match_pallas.py:43",
-                        launches=launches["match_rows"], max_abs_err=k2_err,
-                        ms=big["ms"], plain_ms=big["plain_ms"]))
-    print(f"K2 launches captured in the drive: {n_calls}")
+                        launches=launches["match_rows"],
+                        launches_per_frame=launches["match_rows"] / n_fr,
+                        max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
+                        bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
+                        library_ms=None, per_frame=per_frame, calls=k2_rows))
 
     # K3 on the mapper search's inputs: triangulation 1024x1024 (KF1 x KF2
-    # features) and fuse 1024x1024 (new points x KF3 features)
+    # features) and fuse 1024x1024 (new points x KF3 features). No PyTorch
+    # call takes packed words; for information only, the JAX path's +-1
+    # bf16 product on unpacked bit planes (256 - 2 x the distance) is timed
+    # beside it.
     k3_rows, k3_err = [], 0.0
+    ab_hamming_lib = _ab_build(ab_dir, "hamming.cu")
     for label, a in zip(("triangulate", "fuse"), hcap.calls):
         got = pallas_kernels.hamming_matrix_cuda(*a)
         torch.cuda.synchronize()
@@ -761,18 +1093,41 @@ def main() -> int:
         k3_err = max(k3_err, float((got - ref).abs().max()))
         if not torch.equal(got, ref):
             raise RuntimeError(f"K3 {label} disagrees with its plain version")
-        ms = _time_ms(lambda: pallas_kernels.hamming_matrix_cuda(*a))
-        pms = _time_ms(lambda: pallas_kernels.hamming_matrix_plain(*a))
-        k3_rows.append(dict(pass_=label, ms=ms, plain_ms=pms))
-        print(f"K3 {label} {a[0].shape[0]}x{a[1].shape[0]}: bit-identical; "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        pa, pb = _pm1_planes(a[0]), _pm1_planes(a[1])
+        if not torch.equal((256 - (pa @ pb.T).float()) / 2, ref.float()):
+            raise RuntimeError("K3: the +-1 product is not 256 - 2 x the distance")
+        N, M = a[0].shape[0], a[1].shape[0]
+        row = dict(call=label, shape=[N, M])
+        kern = lambda: pallas_kernels.hamming_matrix_cuda(*a)
+        if ab_hamming_lib is None:
+            row["device_ms"], row["call_ms"] = _time_kernel(kern)
+        else:
+            with ab_hamming_lib:
+                if not torch.equal(kern(), ref):
+                    raise RuntimeError(f"K3 A/B build, {label}: disagrees with the plain version")
+            times = _ab_times(kern, ab_hamming_lib)
+            row.update(zip(("device_ms", "call_ms", "parent_device_ms", "parent_call_ms"), times))
+        row["plain_ms"], _ = _time_kernel(lambda: pallas_kernels.hamming_matrix_plain(*a))
+        row["info_pm1_matmul_ms"], _ = _time_kernel(lambda: pa @ pb.T)
+        row.update(k3_bound(N, M))
+        k3_rows.append(row)
+        parent = (f", A/B build device {row['parent_device_ms']:.5f} ms, call "
+                  f"{row['parent_call_ms']:.5f} ms" if "parent_device_ms" in row else "")
+        print(f"K3 {label} {N}x{M}: bit-identical; device {row['device_ms']:.5f} ms, call "
+              f"{row['call_ms']:.5f} ms{parent}, plain {row['plain_ms']:.5f} ms, +-1 bf16 matmul "
+              f"(information, not the same function) {row['info_pm1_matmul_ms']:.5f} ms, "
+              f"bound {row['bound_us']:.3f} us ({row['bound_by']})")
     if len(k3_rows) != 2:
         raise RuntimeError(f"K3: expected the triangulate and fuse launches, got {hcap.n}")
+    k3 = {k: float(np.mean([r[k] for r in k3_rows])) for k in k3_rows[0] if k.endswith("_ms")}
     kernels.append(dict(name="hamming", route="cuda",
                         source="monoorbslam3_tpu_torch/csrc/hamming.cu",
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:28",
-                        launches=map_launches["hamming"], max_abs_err=k3_err,
-                        ms=k3_rows[0]["ms"], plain_ms=k3_rows[0]["plain_ms"]))
+                        launches=map_launches["hamming"],
+                        launches_per_frame=launches["hamming"] / n_fr,
+                        launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
+                        ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
+                        bound_by=k3_rows[0]["bound_by"], library_ms=None, calls=k3_rows))
 
     # K4 on every reduced system the BA runs solved (D = 480; G = 1 from the
     # deferred LM, G = 2 from the parallel-lambda LM) and on seeded SPD
@@ -829,23 +1184,34 @@ def main() -> int:
                   f"SPD neighbour {e:.3e} vs float64")
             if not (torch.isnan(x[0]).all() and torch.isnan(xp[0]).all() and e <= K4_RTOL):
                 raise RuntimeError(f"K4 {kernel} route on the {kind} system")
+    # K4's yardstick: torch.linalg.solve_ex, the library's LU solve without
+    # its host-side error check (torch.linalg.solve reads the info back)
     k4_rows = {}
     S1440, b1440 = seeded["seeded D=1440"][0]
     for label, (S, b) in (("G1", systems["BA G=1"][-1]), ("G2", systems["BA G=2"][-1]),
                           ("d1440", (S1440[:1], b1440[:1]))):
-        ms = _time_ms(lambda: chol_pallas.chol_solve_cuda(S, b))
-        pms = _time_ms(lambda: chol_pallas.chol_solve_plain(S, b))
-        k4_rows[label] = (ms, pms)
+        row = {}
+        row["device_ms"], row["call_ms"] = _time_kernel(lambda: chol_pallas.chol_solve_cuda(S, b))
+        row["plain_ms"], _ = _time_kernel(lambda: chol_pallas.chol_solve_plain(S, b),
+                                          f"K4 {label} plain version")
+        row["library_ms"], _ = _time_kernel(lambda: torch.linalg.solve_ex(S, b),
+                                            f"K4 {label} linalg.solve_ex")
+        row.update(k4_bound(S.shape[0], S.shape[-1]))
+        k4_rows[label] = row
         print(f"K4 {label} {tuple(S.shape)} ({chol_pallas.route(S.shape[-1], dev)} route): "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+              f"device {row['device_ms']:.5f} ms, call {row['call_ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.5f} ms, linalg.solve_ex {row['library_ms']:.5f} ms, bound "
+              f"{row['bound_us']:.3f} us ({row['bound_by']})")
+    g1 = k4_rows["G1"]
     kernels.append(dict(name="chol_solve", route="cuda",
                         source="monoorbslam3_tpu_torch/csrc/chol_solve.cu",
                         replaces="monoorbslam3_tpu/ops/chol_pallas.py:40",
-                        launches=ba_launches["chol_solve"], max_abs_err=k4_abs,
-                        max_rel_err_vs_f64=k4_f64, max_rel_err_vs_plain=k4_plain,
-                        ms=k4_rows["G1"][0], plain_ms=k4_rows["G1"][1],
-                        ms_g2=k4_rows["G2"][0], plain_ms_g2=k4_rows["G2"][1],
-                        ms_d1440=k4_rows["d1440"][0], plain_ms_d1440=k4_rows["d1440"][1],
+                        launches=ba_launches["chol_solve"],
+                        launches_per_frame=(launches["chol_solve"] + launches["chol_solve_l2"]) / n_fr,
+                        launches_per_solve=len(ba["flat_deferred"]["systems"]),
+                        max_abs_err=k4_abs, max_rel_err_vs_f64=k4_f64,
+                        max_rel_err_vs_plain=k4_plain, ms=g1["device_ms"], **g1,
+                        g2=k4_rows["G2"], d1440=k4_rows["d1440"],
                         cluster_size=chol_pallas.cluster_shape(dev)[0],
                         cluster_max_d=chol_pallas.cluster_shape(dev)[1]))
 
@@ -870,6 +1236,14 @@ def main() -> int:
                             ("window BA", "chol_solve", ba_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r in kernels[1]["calls"]:
+        if r["blocks"] < n_sm:
+            failures.append(f"K2 {r['call']}: {r['blocks']} blocks < {n_sm}, the card's SMs")
+    for kern in ("match_rows_kernel", "hamming_kernel"):
+        if tc_ops is not None and not any(kern in name and any(op.startswith("BMMA") for op in ops)
+                                          for name, ops in tc_ops.items()):
+            failures.append(f"{kern}: no BMMA (tensor-core) instruction in its SASS")
     if ba_launches["chol_solve_l2"]:
         failures.append("window BA: K4's large-D route ran on the D = 480 systems")
     if mrec["n_accepted"] < MIN_ACCEPTED:

@@ -4,7 +4,8 @@ Builds `bench_window.build_problem(seed=0)` on the card, warms up, and runs
 one `schur_ba` solve per variant of chip_smoke's BA_VARIANTS under
 `torch.profiler`. Prints, per variant: wall time of the profiled solve,
 kernel launches (`cudaLaunchKernel` calls), device busy time (sum of the
-kernels' device time; one stream, so they do not overlap) and idle share,
+device rows' time, `port_track_profile.device_rows`; one stream, so they
+do not overlap) and idle share,
 the kernels that take the most device time, and the host ops that take the
 most host time. The profiler's own cost inflates the wall time; chip_smoke
 times the solves without it.
@@ -25,12 +26,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from experiments.port_track_profile import _dev_us, device_rows
 from monoorbslam3_tpu_torch.backend.solver import schur_ba
 from monoorbslam3_tpu_torch.bench_window import build_problem
-
-
-def _dev_us(evt):
-    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
 def main():
@@ -55,12 +53,14 @@ def main():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ka = prof.key_averages()
-        launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-        busy_us = sum(_dev_us(e) for e in ka if e.key != "cudaLaunchKernel")
+        launches = sum(e.count for e in ka if e.key.startswith("cudaLaunchKernel"))
+        kern = sorted(device_rows(ka), key=_dev_us, reverse=True)
+        busy_us = sum(_dev_us(e) for e in kern)
+        every_row = sum(_dev_us(e) for e in ka if e.key != "cudaLaunchKernel")
         print(f"== {name}: profiled wall {1e3 * wall:.3f} ms, {launches} kernel launches "
               f"({launches / cs.BA_ITERS:.0f} per iteration), device busy "
-              f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.3f}")
-        kern = sorted((e for e in ka if _dev_us(e) > 0), key=_dev_us, reverse=True)
+              f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.3f} (summed over "
+              f"every row, host ops' rows too: {every_row / 1e3:.3f} ms)")
         for e in kern[: args.top]:
             print(f"   device {_dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
         host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)

@@ -16,7 +16,8 @@ patch gather (`ops/pallas_kernels.gather_patches_dyn`), the gated top-2
 match (`ops/match_pallas._match_rows`), the Hamming block
 (`ops/pallas_kernels.hamming_matrix_pallas`) and the SPD Cholesky solve
 (`ops/chol_pallas.chol_solve`). A CPU tensor takes their plain PyTorch
-versions.
+versions. The entry points run on the card unless the caller passes
+`device="cpu"` (`utils/device.py`).
 """
 
 from .utils.precision import f32_matmuls

@@ -118,7 +118,7 @@ def _pose_optimize_impl(
     return state, inlier
 
 
-def _identity_edge(device="cpu") -> PreintEdge:
+def _identity_edge(device) -> PreintEdge:
     f32 = dict(dtype=torch.float32, device=device)
     z3 = torch.zeros(3, **f32)
     z33 = torch.zeros((3, 3), **f32)

@@ -39,7 +39,7 @@ class KfState(NamedTuple):
     ba: torch.Tensor  # [..., 3]
 
     @staticmethod
-    def zeros(batch=(), device="cpu"):
+    def zeros(batch=(), *, device):
         z = torch.zeros((*batch, 3), dtype=torch.float32, device=device)
         eye = torch.eye(3, dtype=torch.float32, device=device).expand(*batch, 3, 3)
         return KfState(eye.clone(), z, z.clone(), z.clone(), z.clone())

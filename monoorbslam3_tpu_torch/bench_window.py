@@ -20,14 +20,16 @@ from .backend.residuals import KfState, PreintEdge
 from .backend.solver import BAProblem
 from .models.camera import Pinhole
 from .utils import lie
+from .utils.device import CARD, resolve
 
 CAM = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752, height=480)
 
 
 def build_problem(n_kf=32, n_fixed=8, n_pts=2048, obs_per_kf=192, seed=0,
-                  device="cpu"):
+                  device=CARD):
     """Returns (BAProblem, Pinhole) on `device`; the body-to-camera
     transform of the window is the identity."""
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     f32 = dict(dtype=torch.float32, device=device)
     cam = Pinhole.create(**CAM, device=device)

@@ -2,7 +2,8 @@
 
 Every function takes numpy arrays (or anything `np.asarray` accepts, such
 as the fields of the JAX package's records) and returns the port's
-objects on a given device. Descriptors arrive as uint32 words and are
+objects on a given device, the card unless the caller names another
+(`utils/device.py`). Descriptors arrive as uint32 words and are
 held as the int32 view of the same bits.
 """
 
@@ -14,12 +15,13 @@ import torch
 from .backend.residuals import KfState, PreintEdge
 from .backend.solver import BAProblem
 from .models.camera import Pinhole
+from .utils.device import CARD, resolve
 
 
-def desc_to_torch(desc, device="cpu") -> torch.Tensor:
+def desc_to_torch(desc, device=CARD) -> torch.Tensor:
     """[K, 8] uint32 words -> [K, 8] int32 tensor with the same bits."""
     words = np.ascontiguousarray(np.asarray(desc, np.uint32))
-    return torch.from_numpy(words.view(np.int32).copy()).to(device)
+    return torch.from_numpy(words.view(np.int32).copy()).to(resolve(device))
 
 
 def desc_to_numpy(desc) -> np.ndarray:
@@ -29,7 +31,7 @@ def desc_to_numpy(desc) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(desc, np.int32)).view(np.uint32)
 
 
-def tensor(x, device="cpu") -> torch.Tensor:
+def tensor(x, device=CARD) -> torch.Tensor:
     """numpy -> tensor; float64 becomes float32, uint32 descriptors become
     their int32 view, bool and integer types are kept."""
     a = np.asarray(x)
@@ -37,12 +39,13 @@ def tensor(x, device="cpu") -> torch.Tensor:
         return desc_to_torch(a, device)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(resolve(device))
 
 
-def pinhole(cam, device="cpu") -> Pinhole:
+def pinhole(cam, device=CARD) -> Pinhole:
     """A Pinhole's fields (fx, fy, cx, cy, dist, width, height, min_x,
     min_y, max_x, max_y) -> the port's camera, bounds taken as given."""
+    device = resolve(device)
     f = lambda v: torch.tensor(float(np.asarray(v)), dtype=torch.float32, device=device)
     dist = np.zeros(5, np.float32)
     d = np.asarray(cam.dist, np.float32).reshape(-1)
@@ -53,22 +56,23 @@ def pinhole(cam, device="cpu") -> Pinhole:
                    max_x=f(cam.max_x), max_y=f(cam.max_y))
 
 
-def kf_state(s, device="cpu") -> KfState:
+def kf_state(s, device=CARD) -> KfState:
     """(R_wb, t_wb, v, bg, ba) arrays, single or batched over leading axes
     -> KfState of float32 tensors."""
     return KfState(*(tensor(np.asarray(a, np.float32), device) for a in s))
 
 
-def preint_edge(e, device="cpu") -> PreintEdge:
+def preint_edge(e, device=CARD) -> PreintEdge:
     """A PreintEdge's twelve fields (single or batched) -> the port's
     record of float32 tensors."""
     return PreintEdge(*(tensor(np.asarray(a, np.float32), device) for a in e))
 
 
-def ba_problem(p, device="cpu") -> BAProblem:
+def ba_problem(p, device=CARD) -> BAProblem:
     """A BAProblem's fields (the JAX record, or numpy arrays in its field
     order) -> the port's BAProblem. Index arrays become int64, masks bool,
     the rest float32."""
+    device = resolve(device)
     idx = lambda a: torch.as_tensor(np.array(a, np.int64), device=device)
     mask = lambda a: torch.as_tensor(np.array(a, bool), device=device)
     f32 = lambda a: tensor(np.asarray(a, np.float32), device)

@@ -15,6 +15,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..utils.device import CARD, resolve
+
 _Z_MIN = 1e-6  # guard for points at/behind the camera plane
 
 
@@ -59,8 +61,8 @@ class Pinhole:
 
     @staticmethod
     def create(fx, fy, cx, cy, dist=None, width=0, height=0,
-               device="cpu") -> "Pinhole":
-        f32 = dict(dtype=torch.float32, device=device)
+               device=CARD) -> "Pinhole":
+        f32 = dict(dtype=torch.float32, device=resolve(device))
         d = torch.zeros(5, **f32)
         if dist is not None:
             dist = torch.as_tensor(dist, **f32).reshape(-1)

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "match_rows_f32": [_P, _P, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P],
+    # N -> blocks of a launch
+    "match_rows_blocks": [_I],
     # desc_a, N, desc_b, M, out, stream
     "hamming_i32": [_P, _I, _P, _I, _P, _P],
     # S, b, G, D, x, stream

@@ -55,6 +55,9 @@ def _match_rows_cuda(desc_a, desc_b, ax, ay, r2a, ga, va, bx, by, r2b, gb, vb):
         return best, second, idx
     if M == 0:
         raise ValueError("_match_rows: no columns")
+    if desc_b.data_ptr() % 16:
+        raise ValueError("_match_rows: the kernel reads column descriptors 16 bytes at a "
+                         "time; they must start on a 16-byte boundary")
     err = cuda_lib.lib().match_rows_f32(
         desc_a.data_ptr(), ax.data_ptr(), ay.data_ptr(), r2a.data_ptr(),
         ga.data_ptr(), va.data_ptr(), N,

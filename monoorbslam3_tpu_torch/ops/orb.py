@@ -31,6 +31,7 @@ import torch
 from . import fast as fast_ops
 from . import image as image_ops
 from . import pallas_kernels
+from ..utils.device import CARD, resolve
 
 PATCH = 48  # gathered patch size (square)
 HALF = PATCH // 2
@@ -149,14 +150,14 @@ class OrbExtractor:
     def __init__(self, height: int, width: int, n_features: int = 1024,
                  n_levels: int = 8, scale: float = 1.2, ini_th_fast: float = 20.0,
                  min_th_fast: float = 7.0, cell: int = 16, per_cell: int = 4,
-                 device="cpu"):
+                 device=CARD):
         self.height, self.width = height, width
         self.n_features = n_features
         self.n_levels = n_levels
         self.scale = scale
         self.ini_th, self.min_th = ini_th_fast, min_th_fast
         self.cell, self.per_cell = cell, per_cell
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.quotas = level_quotas(n_features, n_levels, scale)
         self.scale_factors = np.array([scale**l for l in range(n_levels)], np.float32)
         self.sigma2 = self.scale_factors**2

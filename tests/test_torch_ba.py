@@ -84,7 +84,7 @@ def _vi_problem(seed=3):
 @pytest.fixture(scope="module")
 def vi():
     jp, jcam = _vi_problem()
-    return dict(jp=jp, jcam=jcam, tp=convert.ba_problem(jp), tcam=convert.pinhole(jcam),
+    return dict(jp=jp, jcam=jcam, tp=convert.ba_problem(jp, device="cpu"), tcam=convert.pinhole(jcam, device="cpu"),
                 jR=jnp.asarray(I3), jt=jnp.asarray(Z3),
                 tR=torch.eye(3), tt=torch.zeros(3))
 
@@ -344,8 +344,8 @@ def test_build_problem_matches_bench(size):
     observations' pixels within 1e-3 px."""
     kw = SMALL if size == "small" else {}
     jp, _ = bench.build_problem(seed=0, **kw)
-    tp, cam = bench_window.build_problem(seed=0, **kw)
-    cp = convert.ba_problem(jp)
+    tp, cam = bench_window.build_problem(seed=0, **kw, device="cpu")
+    cp = convert.ba_problem(jp, device="cpu")
     for name in ("obs_kf", "obs_pt", "obs_valid", "ie_i", "ie_j", "pt_active", "kf_dof",
                  "walk_inv_sigma", "obs_inv_sigma2", "prior_inv_sigma", "ie_valid",
                  "walk_valid"):
@@ -367,7 +367,7 @@ def test_bench_window_full_size():
     relative of the JAX package's (both measured on the CPU: cost0
     200982.56 and cost 1118.566 for JAX)."""
     jp, jcam = bench.build_problem(seed=0)
-    tp, tcam = bench_window.build_problem(seed=0)
+    tp, tcam = bench_window.build_problem(seed=0, device="cpu")
     _, _, jinfo = jsolver.schur_ba(jp, jcam, jnp.asarray(I3), jnp.asarray(Z3), n_iters=10)
     _, _, tinfo = tsolver.schur_ba(tp, tcam, torch.eye(3), torch.zeros(3), n_iters=10)
     c0, c = float(jinfo["cost0"]), float(jinfo["cost"])

@@ -67,22 +67,68 @@ def _match_args(N, M, device, seed=11):
 @pytest.mark.parametrize("shape", [(1024, 1024), (4096, 1024), (200, 300), (5, 3)])
 def test_match_kernel_matches_plain(cuda, shape):
     """K2 against its plain version in both directions: best, second and
-    idx bit-identical (main-path shapes, ragged shapes, fewer columns than
-    a block's column slices)."""
+    idx bit-identical (the tracking step's shapes 1024 x 1024, 4096 x 1024
+    and 1024 x 4096; ragged shapes; fewer columns than one column chunk)."""
     for args in _match_args(*shape, cuda):
-        n0 = cuda_lib.launches["match_rows"]
-        out = _match_rows(*args)
-        torch.cuda.synchronize()
-        assert cuda_lib.launches["match_rows"] == n0 + 1
-        for a, b in zip(out, _match_rows_plain(*args)):
-            assert torch.equal(a, b)
+        _check_match(args)
+
+
+def _check_match(args):
+    n0 = cuda_lib.launches["match_rows"]
+    out = _match_rows(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["match_rows"] == n0 + 1
+    ref = _match_rows_plain(*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    return ref
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1024, 1024), (300, 513), (1, 70), (65, 1)])
+@pytest.mark.parametrize("shape", [(1024, 1024), (4096, 1024), (1024, 4096), (37, 1000)])
+def test_match_kernel_ties_across_chunks(cuda, shape):
+    """K2 on rows whose best distance sits at two columns in different
+    column chunks (a pair straddles every multiple of 8 up to 512, the
+    rest lie at random): the lower column wins and second == best."""
+    from chip_smoke import seeded_match_ties
+
+    args = [t.to(cuda) for t in seeded_match_ties(*shape, np.random.default_rng(sum(shape)))]
+    best, second, idx = _check_match(args)
+    assert bool((best == 1).any()) and bool((second == best).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1000, 7])
+def test_match_kernel_gated_edges(cuda, M):
+    """K2's edge rows: a row whose only gated-in column is the last one
+    (in the last, ragged column chunk at M = 1000; fewer columns than one
+    chunk at M = 7), a row with no valid side, a row that only its vocab
+    node lets through, and rows beyond a row tile."""
+    N = 70
+    rows, _ = _match_args(N, M, cuda, seed=5)
+    ax, ay, r2a, ga, va = (t.clone() for t in rows[2:7])
+    bx, by, r2b, gb, vb = (t.clone() for t in rows[7:12])
+    bx[:] = 5000.0  # every column far from every row ...
+    bx[-1], by[-1], vb[-1], gb[-1] = 10.0, 10.0, 1.0, -1.0  # ... but the last one
+    ax[0], ay[0], r2a[0], va[0], ga[0] = 10.5, 10.0, 4.0, 1.0, -1.0  # row 0 sees only it
+    va[1] = 0.0  # row 1: all gated
+    ax[2], ay[2], r2a[2], va[2], ga[2] = 10.0, 10.0, 4.0, 1.0, 3.0  # row 2: vocab 3 ...
+    gb[-1] = 4.0  # ... and the last column now vocab 4, so row 2 sees nothing
+    ax[3], ay[3], r2a[3], va[3], ga[3] = 10.0, 10.5, 4.0, 1.0, 4.0  # row 3: vocab 4 sees it
+    args = [rows[0], rows[1], ax, ay, r2a, ga, va, bx, by, r2b, gb, vb]
+    best, second, idx = _check_match(args)
+    assert idx[:4].tolist() == [M - 1, -1, -1, M - 1]
+    assert float(second[0]) == 1e9 and float(best[1]) == 1e9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1024, 1024), (300, 513), (1, 70), (65, 1), (5, 3), (15, 7),
+                                   (17, 9), (1024, 1023), (64, 130)])
 def test_hamming_kernel_matches_plain(cuda, shape):
-    """K3 at the mapper's shape and at ragged ones (not multiples of the
-    64 x 64 tile): bit-identical to the plain XOR + popcount."""
+    """K3 at the mapper's shape and at ragged ones: not multiples of the
+    64 x 64 tile, below one 16 x 8 mma tile, and a row pitch that is not a
+    multiple of 16 bytes (M = 1023): bit-identical to the plain XOR +
+    popcount."""
     from monoorbslam3_tpu_torch.ops import pallas_kernels as pk
 
     rng = np.random.default_rng(21)

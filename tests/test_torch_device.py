@@ -1,0 +1,53 @@
+"""PyTorch port: the public entry points default to the CUDA card, and on a
+host without one they raise instead of running on the CPU. The defaults
+are read through `inspect.signature`, so nothing here touches CUDA."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from monoorbslam3_tpu_torch import bench_window, convert
+from monoorbslam3_tpu_torch.backend.problems import _identity_edge
+from monoorbslam3_tpu_torch.backend.residuals import KfState
+from monoorbslam3_tpu_torch.models.camera import Pinhole
+from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
+
+ENTRY_POINTS = {
+    "OrbExtractor": OrbExtractor.__init__,
+    "Pinhole.create": Pinhole.create,
+    "bench_window.build_problem": bench_window.build_problem,
+    **{f"convert.{n}": getattr(convert, n)
+       for n in ("desc_to_torch", "tensor", "pinhole", "kf_state", "preint_edge", "ba_problem")},
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    default = inspect.signature(ENTRY_POINTS[name]).parameters["device"].default
+    assert default is not inspect.Parameter.empty
+    assert torch.device(default) == torch.device("cuda")
+
+
+@pytest.mark.parametrize("helper", [KfState.zeros, _identity_edge],
+                         ids=["KfState.zeros", "_identity_edge"])
+def test_internal_helpers_take_the_device_without_default(helper):
+    assert inspect.signature(helper).parameters["device"].default is inspect.Parameter.empty
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """Called without `device` where no card is present, each entry point
+    raises; with device="cpu" it runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda **kw: OrbExtractor(64, 96, n_features=32, n_levels=2, **kw),
+             lambda **kw: Pinhole.create(fx=100.0, fy=100.0, cx=48.0, cy=32.0,
+                                         width=96, height=64, **kw),
+             lambda **kw: bench_window.build_problem(n_kf=4, n_fixed=1, n_pts=8,
+                                                     obs_per_kf=4, **kw),
+             lambda **kw: convert.tensor(np.zeros(3, np.float32), **kw),
+             lambda **kw: convert.desc_to_torch(np.zeros((2, 8), np.uint32), **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+        call(device="cpu")

@@ -59,7 +59,7 @@ def test_hamming_matrix_matches_jax(shape):
     k = min(shape) // 2
     b[:k] = a[:k]
     a[-1] = np.uint32(0xFFFFFFFF)
-    got = tm.hamming_matrix(convert.desc_to_torch(a), convert.desc_to_torch(b)).numpy()
+    got = tm.hamming_matrix(convert.desc_to_torch(a, "cpu"), convert.desc_to_torch(b, "cpu")).numpy()
     ref = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
     pal = np.asarray(j_hamming_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
     np.testing.assert_array_equal(got, ref)
@@ -138,7 +138,7 @@ def test_triangulate_dlt_matches_jax():
 
 @pytest.fixture(scope="module")
 def kfs():
-    jcam, tcam = JPinhole.create(**INTR), TPinhole.create(**INTR)
+    jcam, tcam = JPinhole.create(**INTR), TPinhole.create(**INTR, device="cpu")
     world = tsim.ImageWorld()
     imgs = [world.render(t, tcam, R_BC, T_BC, rng=np.random.default_rng(30 + i))
             for i, t in enumerate(KF_TIMES)]
@@ -161,14 +161,14 @@ def _jax_search(cam, feats, poses):
 
 
 def _torch_search(cam, feats, poses):
-    a, b, c = [{k: convert.tensor(v) for k, v in f.items()} for f in feats]
+    a, b, c = [{k: convert.tensor(v, "cpu") for k, v in f.items()} for f in feats]
     T = lambda *xs: [torch.as_tensor(x) for x in xs]
     idx, X, acc = tlm._triangulate_pair_kernel(
         a["xy"], a["desc"], a["valid"], a["sigma2"], b["xy"], b["desc"], b["valid"],
         b["sigma2"], cam, *T(*poses[0], *poses[1]))
     idx, X, acc = idx.numpy(), X.numpy(), acc.numpy()
     pts, desc, valid = _fuse_inputs(feats[0], X, acc)
-    fidx = tlm._fuse_project_kernel(torch.as_tensor(pts), convert.desc_to_torch(desc),
+    fidx = tlm._fuse_project_kernel(torch.as_tensor(pts), convert.desc_to_torch(desc, "cpu"),
                                     torch.as_tensor(valid), c["xy"], c["desc"], c["valid"],
                                     c["sigma2"], cam, *T(*poses[2]), 4.0)
     return idx, X, acc, fidx.numpy()
@@ -205,7 +205,7 @@ def test_mapper_kernels_match_jax_on_same_inputs(kfs):
     the renderer's (median; measured 0.26 m: at a 200 px focal length a
     half-pixel keypoint error moves a point ~0.2 m in depth at 8 m over this
     baseline)."""
-    cam_t = convert.pinhole(kfs["jcam"])
+    cam_t = convert.pinhole(kfs["jcam"], device="cpu")
     ji, jX, ja, jf = _jax_search(kfs["jcam"], kfs["jfeats"], kfs["poses"])
     ti, tX, ta, tf = _torch_search(cam_t, kfs["jfeats"], kfs["poses"])
     assert ja.sum() > 40  # the pair really triangulates
@@ -224,7 +224,7 @@ def test_mapper_search_chain_matches_jax(kfs):
     Bounds: accepted and fused counts within 5% of the JAX chain's, median
     3D error against the renderer's true points within 10% (measured:
     identical counts and errors; the extractors agree bit for bit)."""
-    ext = TOrbExtractor(H, W, n_features=N_FEAT, n_levels=N_LEVELS)
+    ext = TOrbExtractor(H, W, n_features=N_FEAT, n_levels=N_LEVELS, device="cpu")
     tcam = kfs["tcam"]
     tfeats = []
     for img in kfs["imgs"]:

@@ -75,7 +75,7 @@ def test_projected_match_bit_identical_to_jax(backend, case):
         kw_j.update(groups_a=ga, groups_b=gb)
         kw_t.update(groups_a=torch.as_tensor(ga), groups_b=torch.as_tensor(gb))
     idx_j, dist_j = j_projected_match(da, db, backend=backend, **kw_j)
-    idx_t, dist_t = t_projected_match(convert.desc_to_torch(da), convert.desc_to_torch(db),
+    idx_t, dist_t = t_projected_match(convert.desc_to_torch(da, "cpu"), convert.desc_to_torch(db, "cpu"),
                                       **kw_t)
     idx_j, dist_j = np.asarray(idx_j), np.asarray(dist_j)
     assert (idx_j >= 0).sum() > 10  # the case really matches something
@@ -95,7 +95,7 @@ def test_match_rows_plain_ties_and_second():
             f(xy_b[:, 0]), f(xy_b[:, 1]), np.full(300, 1e9, np.float32), f(gb), f(vb)]
     bj, sj, ij = (np.asarray(x) for x in _match_rows_xla(
         jnp.asarray(da), jnp.asarray(db), *map(jnp.asarray, args)))
-    bt, st, it = _match_rows_plain(convert.desc_to_torch(da), convert.desc_to_torch(db),
+    bt, st, it = _match_rows_plain(convert.desc_to_torch(da, "cpu"), convert.desc_to_torch(db, "cpu"),
                                    *map(torch.as_tensor, args))
     np.testing.assert_array_equal(bt.numpy(), bj)
     np.testing.assert_array_equal(st.numpy(), sj)
@@ -111,7 +111,7 @@ def test_hamming_matrix_exact():
     b[0] = 0
     b[1] = 0x80000000
     ref = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
-    out = tm.hamming_matrix(convert.desc_to_torch(a), convert.desc_to_torch(b)).numpy()
+    out = tm.hamming_matrix(convert.desc_to_torch(a, "cpu"), convert.desc_to_torch(b, "cpu")).numpy()
     np.testing.assert_array_equal(out, ref)
     assert out[0, 0] == 256 and out[0, 1] == 248
 
@@ -151,7 +151,7 @@ def test_match_descriptors_exact():
     ang_b = rng.uniform(-np.pi, np.pi, 300).astype(np.float32)
     ij, dj = jm.match_descriptors(jnp.asarray(da), jnp.asarray(db), jnp.asarray(mask),
                                   jnp.asarray(ang_a), jnp.asarray(ang_b), use_rotation=True)
-    it, dt = tm.match_descriptors(convert.desc_to_torch(da), convert.desc_to_torch(db),
+    it, dt = tm.match_descriptors(convert.desc_to_torch(da, "cpu"), convert.desc_to_torch(db, "cpu"),
                                   torch.as_tensor(mask), torch.as_tensor(ang_a),
                                   torch.as_tensor(ang_b), use_rotation=True)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))

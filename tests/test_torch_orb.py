@@ -154,7 +154,7 @@ def test_extractor_matches_jax(image):
     descriptor bits differ. Bounds: >= 95% overlap, <= 2% bits."""
     ref = {k: np.asarray(v) for k, v in
            jorb.OrbExtractor(H, W, n_features=256, n_levels=4)(image).items()}
-    out = torb.OrbExtractor(H, W, n_features=256, n_levels=4)(image)
+    out = torb.OrbExtractor(H, W, n_features=256, n_levels=4, device="cpu")(image)
     assert out["desc"].dtype == torch.int32 and out["desc"].shape == (256, 8)
     key_j = {(float(x), float(y), int(l)): i for i, ((x, y), l, v) in
              enumerate(zip(ref["xy"], ref["level"], ref["valid"])) if v}

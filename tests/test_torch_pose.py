@@ -63,12 +63,12 @@ def _run_jax(jcam, state0, pts, uv, inv_s2, valid):
 
 
 def _run_torch(jcam, state0, pts, uv, inv_s2, valid):
-    cam = convert.pinhole(jcam)
-    z = tres.KfState.zeros()
+    cam = convert.pinhole(jcam, device="cpu")
+    z = tres.KfState.zeros(device="cpu")
     st, inl = tp._pose_optimize_impl(
-        convert.kf_state(state0), torch.as_tensor(pts), torch.as_tensor(uv),
+        convert.kf_state(state0, device="cpu"), torch.as_tensor(pts), torch.as_tensor(uv),
         torch.as_tensor(inv_s2), torch.as_tensor(valid), cam, torch.as_tensor(R_CB),
-        torch.as_tensor(T_CB), tp._identity_edge(), z, 0.0, z, None,
+        torch.as_tensor(T_CB), tp._identity_edge("cpu"), z, 0.0, z, None,
         use_inertial=False, use_prior=False)
     return st.R_wb.numpy(), st.t_wb.numpy(), inl.numpy()
 
@@ -88,13 +88,13 @@ def test_pose_lm_matches_jax(seed):
 
 def test_pose_lm_rejects_inertial_branch():
     jcam, state0, pts, uv, inv_s2, valid, _ = _problem(0, N=16)
-    cam = convert.pinhole(jcam)
-    z = tres.KfState.zeros()
+    cam = convert.pinhole(jcam, device="cpu")
+    z = tres.KfState.zeros(device="cpu")
     with pytest.raises(NotImplementedError):
         tp._pose_optimize_impl(
-            convert.kf_state(state0), torch.as_tensor(pts), torch.as_tensor(uv),
+            convert.kf_state(state0, device="cpu"), torch.as_tensor(pts), torch.as_tensor(uv),
             torch.as_tensor(inv_s2), torch.as_tensor(valid), cam, torch.as_tensor(R_CB),
-            torch.as_tensor(T_CB), tp._identity_edge(), z, 1.0, z, None, use_inertial=True)
+            torch.as_tensor(T_CB), tp._identity_edge("cpu"), z, 1.0, z, None, use_inertial=True)
 
 
 def test_small_inverses_and_retraction_match_jax():
@@ -118,6 +118,6 @@ def test_small_inverses_and_retraction_match_jax():
     s = tuple(np.asarray(a, np.float32) for a in s)
     dx = rng.normal(0, 0.1, 15).astype(np.float32)
     rj = jres.retract_kf(JKfState(*map(jnp.asarray, s)), jnp.asarray(dx))
-    rt = tres.retract_kf(convert.kf_state(s), torch.as_tensor(dx))
+    rt = tres.retract_kf(convert.kf_state(s, device="cpu"), torch.as_tensor(dx))
     for a, b in zip(rj, rt):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)

@@ -47,7 +47,7 @@ TIMES = (0.0, 0.05, 0.10)
 @pytest.fixture(scope="module")
 def world():
     jcam = JPinhole.create(**INTR)
-    tcam = TPinhole.create(**INTR)
+    tcam = TPinhole.create(**INTR, device="cpu")
     jw, tw = jsim.ImageWorld(), tsim.ImageWorld()
     imgs_j = [jw.render(t, jcam, R_BC, T_BC, rng=np.random.default_rng(i))
               for i, t in enumerate(TIMES)]
@@ -59,7 +59,7 @@ def world():
 def test_sim_renders_same_images():
     """Undistorted camera: the two sims render bit-identical frames."""
     kw = dict(INTR, dist=None)
-    jcam, tcam = JPinhole.create(**kw), TPinhole.create(**kw)
+    jcam, tcam = JPinhole.create(**kw), TPinhole.create(**kw, device="cpu")
     jw, tw = jsim.ImageWorld(), tsim.ImageWorld()
     for i, t in enumerate(TIMES):
         a = jw.render(t, jcam, R_BC, T_BC, rng=np.random.default_rng(i))
@@ -158,9 +158,9 @@ def _jax_coarse(cam, state0, kw):
 
 
 def _torch_coarse(cam, state0, kw):
-    k = {n: (v if n == "retry_below" else convert.tensor(v)) for n, v in kw.items()}
+    k = {n: (v if n == "retry_below" else convert.tensor(v, device="cpu")) for n, v in kw.items()}
     st, ci, n_match, n_inl = ttrack._coarse_track_kernel(
-        convert.kf_state(state0), k["cand_xyz"], k["cand_desc"], k["cand_valid"],
+        convert.kf_state(state0, device="cpu"), k["cand_xyz"], k["cand_desc"], k["cand_valid"],
         k["cand_ang"], k["cand_extra2"], k["fr_xy"], k["fr_desc"], k["fr_valid"],
         k["fr_angle"], k["fr_sigma2"], cam, torch.as_tensor(R_CB), torch.as_tensor(T_CB),
         k["radius"], kw["retry_below"], use_rotation=True)
@@ -184,11 +184,11 @@ def _jax_local(cam, state0, kw):
 
 
 def _torch_local(cam, state0, kw):
-    z = TKfState.zeros()
+    z = TKfState.zeros(device="cpu")
     out = ttrack._local_track_kernel(
-        convert.kf_state(state0), *(convert.tensor(kw[n]) for n in _LOCAL_ORDER),
+        convert.kf_state(state0, device="cpu"), *(convert.tensor(kw[n], device="cpu") for n in _LOCAL_ORDER),
         cam, torch.as_tensor(R_CB), torch.as_tensor(T_CB), torch.as_tensor(kw["t_bc"]),
-        kw["view_cos_gate"], kw["retry_min"], t_identity_edge(), z, 0.0, use_inertial=False)
+        kw["view_cos_gate"], kw["retry_min"], t_identity_edge("cpu"), z, 0.0, use_inertial=False)
     st, lci, keep, hit, n_inl = out
     return [a.numpy() for a in st], lci.numpy(), keep.numpy(), hit.numpy(), int(n_inl)
 
@@ -214,7 +214,7 @@ def test_stages_match_jax_on_same_inputs(world, jax_feats):
     t in m). Measured: coarse 7.8e-7 and 3.2e-6 m, local 2.0e-7 and 5.6e-7 m."""
     f0, f1, f2 = jax_feats
     jcam = world["jcam"]
-    tcam = convert.pinhole(jcam)
+    tcam = convert.pinhole(jcam, device="cpu")
     state0 = _perturbed(world["traj"], TIMES[1], seed=4)
     kw = _coarse_inputs(world, f0, f1, TIMES[0])
     st_j, ci_j, nm_j, ni_j = _jax_coarse(jcam, state0, kw)
@@ -244,7 +244,7 @@ def test_stages_match_jax_on_same_inputs(world, jax_feats):
 def _chain_torch(world):
     """image -> port extractor -> finish_features -> both stages."""
     tcam = world["tcam"]
-    ext = TOrbExtractor(H, W, n_features=N_FEAT, n_levels=N_LEVELS)
+    ext = TOrbExtractor(H, W, n_features=N_FEAT, n_levels=N_LEVELS, device="cpu")
     feats = []
     for img in world["imgs_t"]:
         f = tframe.finish_features(ext(img), tcam, ext.scale_factors)
