@@ -1,8 +1,12 @@
 """Where the time of the port's window BA goes, on one CUDA card.
 
-Builds `bench_window.build_problem(seed=0)` on the card, warms up, and runs
-one `schur_ba` solve per variant of chip_smoke's BA_VARIANTS under
-`torch.profiler`. Prints, per variant: wall time of the profiled solve,
+Builds `bench_window.build_problem(seed=0)` on the card (the bench window,
+or with `--window polish` chip_smoke's POLISH_WINDOW), warms up, and runs
+one `schur_ba` solve per variant of chip_smoke's BA_VARIANTS (or
+POLISH_VARIANTS) under `torch.profiler`. With `--ab DIR` each variant is
+profiled a second time with its reduced solves going through the
+one-block large-D kernel of `DIR/chol_solve.cu` (a build from before the
+grid route), so K4's share stands beside the parent's. Prints, per variant: wall time of the profiled solve,
 kernel launches (`cudaLaunchKernel` calls), device busy time (sum of the
 device rows' time, `port_track_profile.device_rows`; one stream, so they
 do not overlap) and idle share,
@@ -11,11 +15,13 @@ most host time. The profiler's own cost inflates the wall time; chip_smoke
 times the solves without it.
 
     python experiments/port_ba_profile.py [--variant flat_deferred]
+    python experiments/port_ba_profile.py --window polish [--ab DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -33,39 +39,52 @@ from monoorbslam3_tpu_torch.bench_window import build_problem
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", choices=list(cs.BA_VARIANTS), action="append")
+    ap.add_argument("--window", choices=["bench", "polish"], default="bench")
+    ap.add_argument("--variant", action="append")
+    ap.add_argument("--ab", metavar="DIR", default=None)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("port_ba_profile: needs a CUDA device")
     dev = torch.device("cuda:0")
-    problem, cam = build_problem(seed=0, device=dev)
+    polish = args.window == "polish"
+    variants = cs.POLISH_VARIANTS if polish else cs.BA_VARIANTS
+    iters = cs.POLISH_ITERS if polish else cs.BA_ITERS
+    problem, cam = build_problem(seed=0, device=dev, **(cs.POLISH_WINDOW if polish else {}))
     R_cb, t_cb = torch.eye(3, device=dev), torch.zeros(3, device=dev)
     print(torch.cuda.get_device_name(0))
-    for name in args.variant or list(cs.BA_VARIANTS):
-        kw = cs.BA_VARIANTS[name]
-        for _ in range(2):
-            schur_ba(problem, cam, R_cb, t_cb, n_iters=cs.BA_ITERS, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, pts, info = schur_ba(problem, cam, R_cb, t_cb, n_iters=cs.BA_ITERS, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ka = prof.key_averages()
-        launches = sum(e.count for e in ka if e.key.startswith("cudaLaunchKernel"))
-        kern = sorted(device_rows(ka), key=_dev_us, reverse=True)
-        busy_us = sum(_dev_us(e) for e in kern)
-        every_row = sum(_dev_us(e) for e in ka if e.key != "cudaLaunchKernel")
-        print(f"== {name}: profiled wall {1e3 * wall:.3f} ms, {launches} kernel launches "
-              f"({launches / cs.BA_ITERS:.0f} per iteration), device busy "
-              f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.3f} (summed over "
-              f"every row, host ops' rows too: {every_row / 1e3:.3f} ms)")
-        for e in kern[: args.top]:
-            print(f"   device {_dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
-        host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)
-        for e in host[: args.top]:
-            print(f"   host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+    other = cs._ab_build(args.ab, "chol_solve.cu")
+    builds = [("package", contextlib.nullcontext())]
+    if other is not None and cs.one_block_solver(other) is not None:
+        builds.append(("A/B build, one-block K4", cs._SolverChol(cs.one_block_solver(other))))
+    for name in args.variant or list(variants):
+        kw = variants[name]
+        for build, patch in builds:
+            with patch:
+                for _ in range(2):
+                    schur_ba(problem, cam, R_cb, t_cb, n_iters=iters, **kw)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    _, pts, info = schur_ba(problem, cam, R_cb, t_cb, n_iters=iters, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            ka = prof.key_averages()
+            launches = sum(e.count for e in ka if e.key.startswith("cudaLaunch"))
+            kern = sorted(device_rows(ka), key=_dev_us, reverse=True)
+            busy_us = sum(_dev_us(e) for e in kern)
+            k4_us = sum(_dev_us(e) for e in kern if "chol_" in e.key)
+            every_row = sum(_dev_us(e) for e in ka if not e.key.startswith("cudaLaunch"))
+            print(f"== {name} ({build}): profiled wall {1e3 * wall:.3f} ms, {launches} kernel "
+                  f"launches ({launches / iters:.0f} per iteration), device busy "
+                  f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.3f}, K4 "
+                  f"{k4_us / 1e3:.3f} ms ({k4_us / busy_us:.1%} of busy) (summed over every row, "
+                  f"host ops' rows too: {every_row / 1e3:.3f} ms)")
+            for e in kern[: args.top]:
+                print(f"   device {_dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+            host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)
+            for e in host[: args.top]:
+                print(f"   host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -10,11 +10,13 @@
 //
 // What bounds it on the H100: dependence, not bytes or FLOPs. A 480 x 480
 // factor is 18 M FMAs and every panel waits for the one before. The
-// one-block kernel that came first (kept below as the large-D route) spent
-// 1.38 ms at D = 480 (clock64 phases, NVIDIA H100 80GB HBM3, 700 W): 408 us
-// in the column-by-column panel factor (two block barriers a column), 519
-// us in the trailing update (one SM, through L2), 400 us in the four
-// triangular passes, 35 us in the f64 residual, 22 us loading.
+// one-block kernel that came first (one SM per system) spent 1.38 ms at
+// D = 480 (clock64 phases, NVIDIA H100 80GB HBM3, 700 W): 408 us in the
+// column-by-column panel factor (two block barriers a column), 519 us in
+// the trailing update (one SM, through L2), 400 us in the four triangular
+// passes, 35 us in the f64 residual, 22 us loading; and 15.3 ms at
+// D = 1440. Both routes below spread a system over several SMs and keep
+// the chain of panels short.
 //
 // The cluster route (D <= 768): one thread-block cluster of C = 8 blocks of
 // 512 threads per system; the padded lower triangle lives in the blocks'
@@ -67,19 +69,67 @@
 // keep at most 3 tiles per warp in registers, T <= 48). Above that the
 // wrapper takes the large-D route.
 //
-// The large-D route (`chol_solve_f32`): one block of 512 threads per
-// system, a blocked right-looking factor with 16-column panels staged in
-// shared memory over a working copy in global memory (it stays in the 50 MB
-// L2), L mirrored into the upper triangle so both substitutions read rows.
-// It is bound by one SM's FMA rate and its barriers (1440^3 / 6 FMAs on
-// one SM); the D = 1440 system (4.1 MB as a packed triangle) does not fit
-// even a 16-block cluster's shared memory.
+//
+// The large-D route (`chol_solve_grid_f32`, any D; the wrapper takes it
+// above the cluster route's capacity): one cooperative launch of one block
+// of 512 threads per SM (`cudaLaunchCooperativeKernel`; the entry point
+// checks with the occupancy API that the grid is resident at once and
+// returns an error, not a launch, if it is not), grid barriers of
+// cooperative groups (1.14 us each, measured with an empty kernel of 90 and
+// of 900 barriers: `chol_grid_sync_probe`). The D = 1440 triangle (4.1 MB
+// packed) fits no cluster's shared memory, so it lives in a work buffer in
+// global memory as 16 x 16 tiles (1 KB each, L transposed), which stays in
+// the 50 MB L2; every read of another block's writes goes through L2
+// (`__ldcg` / `__stcg`), since an SM's L1 is not coherent with the others'.
+//   - Ownership: none. Between two grid barriers no tile is written by one
+//     task and touched by another (experiments/port_chol_grid_emulate.py
+//     checks the schedule in numpy), so each phase deals its tiles over
+//     all warps anew: warps 1-15 of every block take tile tasks round
+//     robin, consecutive tasks on different SMs; warp 0 of every block
+//     runs the chain.
+//   - One grid barrier per panel. Phase k: warp 0 of EVERY block builds
+//     diagonal tile k + 1 (its value through panel k - 1, minus panel k's
+//     product: look-ahead) and factors it in registers (`factor_diag`,
+//     shared with the cluster route), keeping L^-1; so every block holds
+//     Li_{k+1} and the same non-SPD flag without a broadcast. Meanwhile
+//     the other warps apply panel k to the trailing tiles (i, j),
+//     j >= k + 2, and take y_k out of the right-hand side blocks (the
+//     first solve's forward pass rides along). After a block barrier the
+//     tiles of column k + 1 take panel k's update and are multiplied by
+//     Li_{k+1}^T at once, so column k + 1 is final at the grid barrier.
+//   - Pivots: as on the cluster route, a pivot that is not > 0 (NaN
+//     included) raises the flag; the leader block, which writes x, holds
+//     it like every other block, so no flag word crosses the work buffer
+//     (which may hold anything at launch: every word is written before it
+//     is read).
+//   - Substitutions: the leader block (block 0 of the system's share) runs
+//     the back pass and the refinement's two passes with block barriers
+//     only, streaming L from L2; each warp prefetches the tiles of step
+//     k + 1 into registers before step k's barriers, diagonal blocks are
+//     applied as Li products. The f64 residual is spread over all blocks
+//     between two grid barriers.
+//   - G >= 2: the grid is split between two systems at a time (66 SMs
+//     each), which share every barrier; more systems run in batches of
+//     two inside the one launch. The kernel is bound by its chain of
+//     barriers and latencies, not by arithmetic, so two systems side by
+//     side cost 1.11x one (0.94 against 0.85 ms at D = 1440), where running
+//     them in turn would cost 2x.
+//   - Arithmetic: FP32 FMAs, every output element accumulated by one
+//     thread in a fixed order, no atomics: two runs give the same bits.
+// Where its 0.85 ms at D = 1440, G = 1 goes (block 0's clock64 spans,
+// `chol_solve_grid_clocks_f32`, same card): 37 us loading S into tiles,
+// 489 us in the 91 factor phases (5.4 us each: a grid barrier, an L2 round
+// trip, the 16 x 16 factor, a block barrier, a column tile), 101 us in the
+// back pass (1.1 us a step), 6 us of residual, 224 us in the refinement's
+// two passes. At D = 769: 12 / 244 / 49 / 3 / 94 us.
 //
 // Accuracy: an f32 Cholesky solve of the BA's reduced systems (condition
 // ~1.6e3 after the Jacobi scaling) lands up to 8e-4 (relative) from the
 // f64 solution, whichever library computes it. One refinement step, with
 // the residual accumulated in f64 and the same factor reused, brings it
-// below 1e-6.
+// below 1e-6. The polish window's systems (D = 1440, one anchor, condition
+// ~4.8e4) are further out: 2e-4 to 6e-4 after the step, for this kernel and
+// for the library's Cholesky alike (chip_smoke.py prints both).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,7 +143,6 @@ constexpr int kNB = 16;       // panel width and tile size
 constexpr int kTile = kNB * kNB;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRB = 4;        // rows per warp in the trailing update (large-D route)
 constexpr int kSolveTiles = 3;  // tiles per warp and step in the cluster route's passes
 constexpr int kClusterMaxT = kWarps * kSolveTiles;  // so the cluster route takes T <= 48
 constexpr int kUpdateThreads = kThreads * 3 / 4;  // warps 1-3, 5-7, 9-11, 13-15
@@ -578,195 +627,498 @@ int max_smem_optin() {
 }
 
 // ---------------------------------------------------------------------------
-// large-D route: one block per system, working copy in L2
+// grid route: each system spread over the card, one cooperative launch
 // ---------------------------------------------------------------------------
 
-// Forward (L y = v) then back (L^T x = y) substitution in place on the
-// shared vector v, panel by panel. A holds L in its lower triangle and L^T
-// in its upper one, so both passes stage whole rows. All threads call it.
-__device__ void tri_solve(const float* __restrict__ A, int D, int ld, float* pt,
-                          float* v) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  // forward: column k of L is row k of the upper triangle
-  for (int k0 = 0; k0 < D; k0 += kNB) {
-    const int nb = min(kNB, D - k0);
-    const int m = D - k0;
-    for (int e = tid; e < m * nb; e += kThreads) {
-      const int c = e / m;
-      const int jj = e - c * m;
-      pt[c * ld + jj] = A[static_cast<long long>(k0 + c) * D + k0 + jj];
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float y = (lane < nb) ? v[k0 + lane] : 0.0f;
-      for (int c = 0; c < nb; ++c) {
-        const float yc = __shfl_sync(kFull, y, c) / pt[c * ld + c];
-        if (lane == c) {
-          y = yc;
-        } else if (lane > c && lane < nb) {
-          y -= pt[c * ld + lane] * yc;
-        }
-      }
-      if (lane < nb) v[k0 + lane] = y;
-    }
-    __syncthreads();
-    for (int jj = nb + tid; jj < m; jj += kThreads) {
-      float s = v[k0 + jj];
-      for (int c = 0; c < nb; ++c) s -= pt[c * ld + jj] * v[k0 + c];
-      v[k0 + jj] = s;
-    }
-    __syncthreads();
+constexpr int kGridSys = 2;  // systems factored side by side, each on its share of the blocks
+constexpr int kPre = 6;      // tiles a warp prefetches per substitution step
+
+// Tile (i, j), j <= i, of the packed lower triangle in the work buffer.
+__device__ __forceinline__ long long tile_off(int i, int j) {
+  return (static_cast<long long>(i) * (i + 1) / 2 + j) * kTile;
+}
+
+// Row and column of entry t of a packed lower triangle (t = i (i + 1) / 2 + j).
+__device__ __forceinline__ void tri_index(int t, int& i, int& j) {
+  i = static_cast<int>((sqrtf(8.0f * static_cast<float>(t) + 1.0f) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > t) --i;
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  j = t - i * (i + 1) / 2;
+}
+
+// Everything one block reads that another block wrote goes through L2
+// (`__ldcg` / `__stcg`): an SM's L1 is not coherent with the other SMs'.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  __stcg(reinterpret_cast<float4*>(p), v);
+}
+
+// One warp: the lane's 8 entries a[] of a tile (row lane / 2, columns
+// 8 (lane % 2) ..) minus L_i L_j^T, from the transposed tiles LT_i, LT_j in
+// global memory, staged through the warp's scratch `sc` (two tiles).
+__device__ __forceinline__ void rank_update(const float* LTi, const float* LTj, float* sc,
+                                            float (&a)[8]) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 1;
+  const int c0 = (lane & 1) * 8;
+  float4* s4 = reinterpret_cast<float4*>(sc);
+  __syncwarp();
+  s4[lane] = ld4(LTi + 4 * lane);
+  s4[lane + 32] = ld4(LTi + 4 * (lane + 32));
+  s4[lane + 64] = ld4(LTj + 4 * lane);
+  s4[lane + 96] = ld4(LTj + 4 * (lane + 32));
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kNB; ++m) {
+    const float u = sc[m * kNB + r];
+    const float4 w0 = *reinterpret_cast<const float4*>(sc + kTile + m * kNB + c0);
+    const float4 w1 = *reinterpret_cast<const float4*>(sc + kTile + m * kNB + c0 + 4);
+    a[0] = fmaf(-u, w0.x, a[0]);
+    a[1] = fmaf(-u, w0.y, a[1]);
+    a[2] = fmaf(-u, w0.z, a[2]);
+    a[3] = fmaf(-u, w0.w, a[3]);
+    a[4] = fmaf(-u, w1.x, a[4]);
+    a[5] = fmaf(-u, w1.y, a[5]);
+    a[6] = fmaf(-u, w1.z, a[6]);
+    a[7] = fmaf(-u, w1.w, a[7]);
   }
-  // back: row k of L is row k of the lower triangle
-  for (int k0 = ((D - 1) / kNB) * kNB; k0 >= 0; k0 -= kNB) {
-    const int nb = min(kNB, D - k0);
-    const int w = k0 + nb;  // columns 0 .. w-1 of rows k0 .. k0+nb-1
-    for (int e = tid; e < nb * w; e += kThreads) {
-      const int c = e / w;
-      const int j = e - c * w;
-      pt[c * ld + j] = A[static_cast<long long>(k0 + c) * D + j];
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float y = (lane < nb) ? v[k0 + lane] : 0.0f;
-      for (int c = nb - 1; c >= 0; --c) {
-        const float xc = __shfl_sync(kFull, y, c) / pt[c * ld + k0 + c];
-        if (lane == c) {
-          y = xc;
-        } else if (lane < c) {
-          y -= pt[c * ld + k0 + lane] * xc;
-        }
-      }
-      if (lane < nb) v[k0 + lane] = y;
-    }
-    __syncthreads();
-    for (int i = tid; i < k0; i += kThreads) {
-      float s = v[i];
-      for (int c = 0; c < nb; ++c) s -= pt[c * ld + i] * v[k0 + c];
-      v[i] = s;
-    }
-    __syncthreads();
+  __syncwarp();
+}
+
+__device__ __forceinline__ void load_entries(const float* tile, float (&a)[8]) {
+  const int lane = threadIdx.x & 31;
+  const float4 a0 = ld4(tile + 8 * lane);
+  const float4 a1 = ld4(tile + 8 * lane + 4);
+  a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+  a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+}
+
+__device__ __forceinline__ void store_entries(float* tile, const float (&a)[8], bool global) {
+  const int lane = threadIdx.x & 31;
+  const float4 a0 = make_float4(a[0], a[1], a[2], a[3]);
+  const float4 a1 = make_float4(a[4], a[5], a[6], a[7]);
+  if (global) {
+    st4(tile + 8 * lane, a0);
+    st4(tile + 8 * lane + 4, a1);
+  } else {
+    *reinterpret_cast<float4*>(tile + 8 * lane) = a0;
+    *reinterpret_cast<float4*>(tile + 8 * lane + 4) = a1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ b,
-                  int D, int ld, float* __restrict__ work,
-                  float* __restrict__ x) {
-  extern __shared__ float smem[];
-  float* pt = smem;             // [kNB][ld] staged panel, transposed
-  float* v = smem + kNB * ld;   // [D] right-hand side -> solution
-  float* rv = v + D;            // [D] refinement residual -> correction
+// The leader block's forward (L z = v, when `forward`) then back
+// (L^T x = z) substitution in place on its shared vector v, streaming the
+// transposed tiles L_ij^T and the diagonal blocks' Li^T from L2. A step's
+// tiles are spread over the warps; each warp sums its products, warp 0
+// reduces the 16 partial sums in a fixed order and applies the diagonal
+// block as a product. The loads of step k + 1 do not depend on step k's
+// result: the first kPre tiles of each warp are requested before step
+// k's barriers. All threads of the block call it.
+__device__ __forceinline__ void grid_tri_solve(const float* tiles, const float* dinv, float* v,
+                                               float* red, int T, bool forward) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float pre[kPre][8];
+  float li[kNB];
+  if (forward) {  // lane (r, h) takes rows m = 2 mm + h of each tile, column r
+    const int r = lane & 15;
+    const int h = lane >> 4;
+    auto load_pre = [&](int k) {
+      if (k >= T) return;
+      const float* row = tiles + tile_off(k, 0);
+#pragma unroll
+      for (int t = 0; t < kPre; ++t) {
+        const int j = warp + kWarps * t;
+        if (j < k) {
+#pragma unroll
+          for (int mm = 0; mm < 8; ++mm)
+            pre[t][mm] = __ldcg(row + j * kTile + (2 * mm + h) * kNB + r);
+        }
+      }
+    };
+    auto load_li = [&](int k) {
+      if (k >= T) return;
+      const float* LiT = dinv + k * kTile;
+#pragma unroll
+      for (int m = 0; m < kNB; ++m) li[m] = __ldcg(LiT + m * kNB + r);
+    };
+    load_pre(0);
+    if (warp == 0) load_li(0);
+    for (int k = 0; k < T; ++k) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < kPre; ++t) {
+        const int j = warp + kWarps * t;
+        if (j < k) {
+#pragma unroll
+          for (int mm = 0; mm < 8; ++mm) acc = fmaf(pre[t][mm], v[j * kNB + 2 * mm + h], acc);
+        }
+      }
+      for (int j = warp + kWarps * kPre; j < k; j += kWarps) {  // past the prefetch
+        const float* tp = tiles + tile_off(k, j);
+#pragma unroll
+        for (int mm = 0; mm < 8; ++mm)
+          acc = fmaf(__ldcg(tp + (2 * mm + h) * kNB + r), v[j * kNB + 2 * mm + h], acc);
+      }
+      load_pre(k + 1);
+      acc += __shfl_xor_sync(kFull, acc, 16);
+      if (lane < kNB) red[warp * kNB + lane] = acc;
+      __syncthreads();
+      if (warp == 0) {
+        float s = v[k * kNB + r];
+        for (int w = 0; w < kWarps; ++w) s -= red[w * kNB + r];
+        float sv[kNB];
+#pragma unroll
+        for (int m = 0; m < kNB; ++m) sv[m] = __shfl_sync(kFull, s, m);
+        float y = 0.0f;
+#pragma unroll
+        for (int m = 0; m < kNB; ++m) y = fmaf(li[m], sv[m], y);
+        if (lane < kNB) v[k * kNB + r] = y;
+        load_li(k + 1);
+      }
+      __syncthreads();
+    }
+  }
+  {  // back: lane (m, h) takes row m of each tile, columns 8 h .. 8 h + 7
+    const int m = lane >> 1;
+    const int h = lane & 1;
+    const int mm = lane & 15;
+    auto load_pre = [&](int k) {
+      if (k < 0) return;
+#pragma unroll
+      for (int t = 0; t < kPre; ++t) {
+        const int i = k + 1 + warp + kWarps * t;
+        if (i < T) {
+          const float* p = tiles + tile_off(i, k) + m * kNB + 8 * h;
+          const float4 u0 = ld4(p);
+          const float4 u1 = ld4(p + 4);
+          pre[t][0] = u0.x; pre[t][1] = u0.y; pre[t][2] = u0.z; pre[t][3] = u0.w;
+          pre[t][4] = u1.x; pre[t][5] = u1.y; pre[t][6] = u1.z; pre[t][7] = u1.w;
+        }
+      }
+    };
+    auto load_li = [&](int k) {
+      if (k < 0) return;
+      const float* p = dinv + k * kTile + mm * kNB;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 u = ld4(p + 4 * q);
+        li[4 * q] = u.x; li[4 * q + 1] = u.y; li[4 * q + 2] = u.z; li[4 * q + 3] = u.w;
+      }
+    };
+    load_pre(T - 1);
+    if (warp == 0) load_li(T - 1);
+    for (int k = T - 1; k >= 0; --k) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < kPre; ++t) {
+        const int i = k + 1 + warp + kWarps * t;
+        if (i < T) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc = fmaf(pre[t][c], v[i * kNB + 8 * h + c], acc);
+        }
+      }
+      for (int i = k + 1 + warp + kWarps * kPre; i < T; i += kWarps) {  // past the prefetch
+        const float* p = tiles + tile_off(i, k) + m * kNB + 8 * h;
+        const float4 u0 = ld4(p);
+        const float4 u1 = ld4(p + 4);
+        const float* vi = v + i * kNB + 8 * h;
+        acc = fmaf(u0.x, vi[0], acc); acc = fmaf(u0.y, vi[1], acc);
+        acc = fmaf(u0.z, vi[2], acc); acc = fmaf(u0.w, vi[3], acc);
+        acc = fmaf(u1.x, vi[4], acc); acc = fmaf(u1.y, vi[5], acc);
+        acc = fmaf(u1.z, vi[6], acc); acc = fmaf(u1.w, vi[7], acc);
+      }
+      load_pre(k - 1);
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      if (h == 0) red[warp * kNB + m] = acc;
+      __syncthreads();
+      if (warp == 0) {
+        float t = v[k * kNB + mm];
+        for (int w = 0; w < kWarps; ++w) t -= red[w * kNB + mm];
+        float tv[kNB];
+#pragma unroll
+        for (int c = 0; c < kNB; ++c) tv[c] = __shfl_sync(kFull, t, c);
+        float x = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kNB; ++c) x = fmaf(li[c], tv[c], x);
+        if (lane < kNB) v[k * kNB + mm] = x;
+        load_li(k - 1);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Floats of one system's work area: the packed tiles, Li^T of every
+// diagonal tile, and four vectors (working right-hand side, y, x, residual).
+__host__ __device__ __forceinline__ long long grid_work_floats(int T) {
+  return (static_cast<long long>(T) * (T + 1) / 2 + T) * kTile + 4LL * T * kNB;
+}
+
+size_t grid_smem_bytes(int T) {
+  return sizeof(float) * (static_cast<size_t>(kWarps) * 2 * kTile + 2 * kTile + kWarps * kNB +
+                          2 * static_cast<size_t>(T) * kNB) + 16;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+chol_grid_kernel(const float* __restrict__ S, const float* __restrict__ b, int G, int D, int T,
+                 float* work, float* __restrict__ x, long long* clocks) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 gsmem[];
+  const int Dp = T * kNB;
+  float* scratch = reinterpret_cast<float*>(gsmem);  // [kWarps][2 tiles]
+  float* DB = scratch + kWarps * 2 * kTile;          // [2] Li^T of diagonal tiles k, k + 1
+  float* red = DB + 2 * kTile;                       // [kWarps][16] the solves' partial sums
+  float* v = red + kWarps * kNB;                     // [Dp] leader: y -> solution
+  float* rv = v + Dp;                                // [Dp] x for the residual; leader: residual -> correction
+  int* bad = reinterpret_cast<int*>(rv + Dp);        // the system's flag
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long off = static_cast<long long>(blockIdx.x) * D * D;
-  const float* Sg = S + off;
-  float* A = work + off;
-  // every thread reads every pivot, so every thread holds the same flag
-  bool ok = true;
-
-  for (int i = tid; i < D * D; i += kThreads) A[i] = Sg[i];
-  for (int i = tid; i < D; i += kThreads) v[i] = b[static_cast<long long>(blockIdx.x) * D + i];
-  __syncthreads();
-
-  // ---- factorization -----------------------------------------------------
-  for (int k0 = 0; k0 < D; k0 += kNB) {
-    const int nb = min(kNB, D - k0);
-    const int m = D - k0;
-    // stage rows k0.. of the panel's columns (lower triangle is current)
-    for (int e = tid; e < m * nb; e += kThreads) {
-      const int r = e / nb;
-      const int c = e - r * nb;
-      pt[c * ld + r] = A[static_cast<long long>(k0 + r) * D + k0 + c];
+  float* sc = scratch + warp * 2 * kTile;
+  // the blocks are split evenly between the systems of a batch; warp 0 of
+  // every block runs the panel chain, warps 1-15 of a system's blocks
+  // share its tiles (consecutive tasks land on different blocks)
+  const int per = min(G, kGridSys);
+  const int bps = gridDim.x / per;
+  const int slot = blockIdx.x / bps;
+  const int lb = blockIdx.x - slot * bps;
+  const int nw = bps * (kWarps - 1);
+  const int gw = (warp - 1) * bps + lb;
+  const bool timed = clocks != nullptr && blockIdx.x == 0 && tid == 0;
+  long long t_prev = timed ? clock64() : 0;
+  auto stamp = [&](int phase) {
+    if (timed) {
+      const long long now = clock64();
+      clocks[phase] += now - t_prev;
+      t_prev = now;
     }
-    __syncthreads();
-    for (int c = 0; c < nb; ++c) {
-      // the pivot is read here and only rewritten after the panel loop
-      const float d = pt[c * ld + c];
-      ok = ok && (d > 0.0f);
-      const float inv = rsqrtf(d);
-      for (int r = c + 1 + tid; r < m; r += kThreads) pt[c * ld + r] *= inv;
+  };
+
+  for (int base = 0; base < G; base += per) {
+    const int sys = base + slot;
+    const bool active = slot < per && sys < G;
+    const float* Sg = S + static_cast<long long>(active ? sys : 0) * D * D;
+    const float* bg = b + static_cast<long long>(active ? sys : 0) * D;
+    float* tiles = work + static_cast<long long>(active ? sys : 0) * grid_work_floats(T);
+    float* dinv = tiles + static_cast<long long>(T) * (T + 1) / 2 * kTile;
+    float* bw = dinv + static_cast<long long>(T) * kTile;  // right-hand side, panels taken out
+    float* yv = bw + Dp;                                   // y = L^-1 b
+    float* xg = yv + Dp;                                   // the first solve's x
+    float* rg = xg + Dp;                                   // the residual b - S x
+
+    // ---- load: S into 16 x 16 tiles of the lower triangle, padded with identity
+    if (active) {
+      if (tid == 0) *bad = 0;
+      const int ntile = T * (T + 1) / 2;
+      const int r = lane >> 1;
+      const int c0 = (lane & 1) * 8;
+      for (int t = tid >> 5; t < ntile; t += kWarps) {
+        if (t % bps != lb) continue;
+        int i, j;
+        tri_index(t, i, j);
+        const int gi = i * kNB + r;
+        float a[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int gj = j * kNB + c0 + q;
+          a[q] = (gi < D && gj < D) ? Sg[static_cast<long long>(gi) * D + gj]
+                                    : (gi == gj ? 1.0f : 0.0f);
+        }
+        store_entries(tiles + static_cast<long long>(t) * kTile, a, true);
+      }
+      for (int e = lb * kThreads + tid; e < Dp; e += bps * kThreads)
+        __stcg(bw + e, e < D ? bg[e] : 0.0f);
+    }
+    grid.sync();
+    stamp(0);
+
+    // ---- factor: phase k applies panel k to the trailing tiles and solves
+    // column k + 1, one grid barrier per phase (phase -1 solves column 0)
+    for (int k = -1; k < T; ++k) {
+      const int k1 = k + 1;
+      float* DBn = DB + (k1 & 1) * kTile;
+      const float* DBk = DB + (k & 1) * kTile;
+      if (active && warp == 0) {
+        // every block factors diagonal tile k + 1 itself (so every block
+        // holds the same flag): look-ahead, the tile plus panel k's update
+        if (k1 < T) {
+          float a[8];
+          load_entries(tiles + tile_off(k1, k1), a);
+          if (k >= 0) rank_update(tiles + tile_off(k1, k), tiles + tile_off(k1, k), sc, a);
+          __syncwarp();
+          store_entries(sc, a, false);
+          __syncwarp();
+          const bool ok = factor_diag(sc, DBn);
+          if (!ok && lane == 0) *bad = 1;
+          __syncwarp();
+          if (lb == 0) {  // the leader keeps Li^T for the solves
+            st4(dinv + static_cast<long long>(k1) * kTile + 8 * lane,
+                *reinterpret_cast<const float4*>(DBn + 8 * lane));
+            st4(dinv + static_cast<long long>(k1) * kTile + 8 * lane + 4,
+                *reinterpret_cast<const float4*>(DBn + 8 * lane + 4));
+          }
+        }
+      } else if (active && k >= 0) {
+        // trailing tiles (i, j), k + 2 <= j <= i, then the right-hand side
+        // blocks k (y_k written) .. T - 1 (panel k taken out)
+        const int n = T - k - 2;
+        const int nA = n > 0 ? n * (n + 1) / 2 : 0;
+        const int nV = T - k;
+        for (int t = gw; t < nA + nV; t += nw) {
+          if (t < nA) {
+            int ii, jj;
+            tri_index(t, ii, jj);
+            const int i = k + 2 + ii;
+            const int j = k + 2 + jj;
+            float* A = tiles + tile_off(i, j);
+            float a[8];
+            load_entries(A, a);
+            rank_update(tiles + tile_off(i, k), tiles + tile_off(j, k), sc, a);
+            store_entries(A, a, true);
+          } else {
+            const int i = k + (t - nA);
+            const int r = lane & 15;
+            // y_k = Li_kk b_k (b_k has taken out every earlier panel)
+            const float bk = __ldcg(bw + k * kNB + r);
+            float y = 0.0f;
+#pragma unroll
+            for (int m = 0; m < kNB; ++m) y = fmaf(DBk[m * kNB + r], __shfl_sync(kFull, bk, m), y);
+            if (i == k) {
+              if (lane < kNB) __stcg(yv + k * kNB + r, y);
+            } else {
+              const float* LT = tiles + tile_off(i, k);
+              float l[kNB];
+#pragma unroll
+              for (int m = 0; m < kNB; ++m) l[m] = __ldcg(LT + m * kNB + r);
+              float s = 0.0f;
+#pragma unroll
+              for (int m = 0; m < kNB; ++m) s = fmaf(l[m], __shfl_sync(kFull, y, m), s);
+              if (lane < kNB) __stcg(bw + i * kNB + r, __ldcg(bw + i * kNB + r) - s);
+            }
+          }
+        }
+      }
+      __syncthreads();  // Li^T of diagonal tile k + 1 is in DBn
+      if (active && warp > 0 && k1 < T) {
+        // column k + 1: L_i = (A_i - L_ik L_k1k^T) Li^T, stored transposed
+        const int r = lane >> 1;
+        const int c0 = (lane & 1) * 8;
+        for (int c = gw; c < T - k - 2; c += nw) {
+          const int i = k + 2 + c;
+          float* A = tiles + tile_off(i, k1);
+          float a[8];
+          load_entries(A, a);
+          if (k >= 0) rank_update(tiles + tile_off(i, k), tiles + tile_off(k1, k), sc, a);
+          __syncwarp();
+          store_entries(sc, a, false);
+          __syncwarp();
+          float row[kNB];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 u = *reinterpret_cast<const float4*>(sc + r * kNB + 4 * q);
+            row[4 * q] = u.x; row[4 * q + 1] = u.y; row[4 * q + 2] = u.z; row[4 * q + 3] = u.w;
+          }
+          float o[8] = {};
+#pragma unroll
+          for (int m = 0; m < kNB; ++m) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) o[q] = fmaf(row[m], DBn[m * kNB + c0 + q], o[q]);
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) sc[kTile + (c0 + q) * kNB + r] = o[q];
+          __syncwarp();
+          st4(A + 8 * lane, *reinterpret_cast<const float4*>(sc + kTile + 8 * lane));
+          st4(A + 8 * lane + 4, *reinterpret_cast<const float4*>(sc + kTile + 8 * lane + 4));
+          __syncwarp();
+        }
+      }
+      grid.sync();
+    }
+    stamp(1);
+
+    // ---- solve, then one refinement step with an f64 residual ------------
+    if (active && lb == 0) {
+      for (int e = tid; e < Dp; e += kThreads) v[e] = __ldcg(yv + e);
       __syncthreads();
-      const int span = m;
-      for (int e = tid; e < (nb - c - 1) * span; e += kThreads) {
-        const int cc = c + 1 + e / span;
-        const int r = e - (cc - c - 1) * span;
-        if (r >= cc) pt[cc * ld + r] -= pt[c * ld + r] * pt[c * ld + cc];
-      }
+      grid_tri_solve(tiles, dinv, v, red, T, false);
+      for (int e = tid; e < Dp; e += kThreads) __stcg(xg + e, v[e]);
+    }
+    grid.sync();
+    stamp(2);
+    if (active) {
+      for (int e = tid; e < Dp; e += kThreads) rv[e] = __ldcg(xg + e);
       __syncthreads();
-    }
-    for (int c = tid; c < nb; c += kThreads) {
-      const float d = pt[c * ld + c];
-      pt[c * ld + c] = d * rsqrtf(d);
-    }
-    __syncthreads();
-    // write back: lower triangle (row-wise) and its mirror (row k0 + c of
-    // the upper triangle = column k0 + c of L)
-    for (int e = tid; e < m * nb; e += kThreads) {
-      const int r = e / nb;
-      const int c = e - r * nb;
-      if (r >= c) A[static_cast<long long>(k0 + r) * D + k0 + c] = pt[c * ld + r];
-    }
-    for (int e = tid; e < m * nb; e += kThreads) {
-      const int c = e / m;
-      const int r = e - c * m;
-      if (r >= c) A[static_cast<long long>(k0 + c) * D + k0 + r] = pt[c * ld + r];
-    }
-    // trailing update of the lower triangle: rows/cols k0+nb .. D-1
-    for (int r0 = nb + warp * kRB; r0 < m; r0 += kWarps * kRB) {
-      float a[kRB][kNB];
+      for (int row = warp * bps + lb; row < D; row += bps * kWarps) {
+        const float* Srow = Sg + static_cast<long long>(row) * D;
+        double s = 0.0;
+        for (int j = lane; j < D; j += 32) s += static_cast<double>(Srow[j]) * rv[j];
 #pragma unroll
-      for (int q = 0; q < kRB; ++q) {
-#pragma unroll
-        for (int c = 0; c < kNB; ++c)
-          a[q][c] = (c < nb && r0 + q < m) ? pt[c * ld + r0 + q] : 0.0f;
-      }
-      const int jmax = min(r0 + kRB - 1, m - 1);
-      for (int jj = nb + lane; jj <= jmax; jj += 32) {
-        // start the L2 reads of the 4 targets before the FMAs, so their
-        // latency hides behind the arithmetic
-        float old[kRB], acc[kRB];
-#pragma unroll
-        for (int q = 0; q < kRB; ++q) {
-          const int r = r0 + q;
-          old[q] = (r < m && jj <= r) ? A[static_cast<long long>(k0 + r) * D + k0 + jj] : 0.0f;
-          acc[q] = 0.0f;
-        }
-#pragma unroll
-        for (int c = 0; c < kNB; ++c) {
-          const float bj = (c < nb) ? pt[c * ld + jj] : 0.0f;
-#pragma unroll
-          for (int q = 0; q < kRB; ++q) acc[q] = fmaf(a[q][c], bj, acc[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < kRB; ++q) {
-          const int r = r0 + q;
-          if (r < m && jj <= r) A[static_cast<long long>(k0 + r) * D + k0 + jj] = old[q] - acc[q];
-        }
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
+        if (lane == 0) __stcg(rg + row, static_cast<float>(static_cast<double>(bg[row]) - s));
       }
     }
-    __syncthreads();
+    grid.sync();
+    stamp(3);
+    if (active && lb == 0) {
+      for (int e = tid; e < Dp; e += kThreads) rv[e] = e < D ? __ldcg(rg + e) : 0.0f;
+      __syncthreads();
+      grid_tri_solve(tiles, dinv, rv, red, T, true);
+      const bool nan = *bad != 0;
+      for (int i = tid; i < D; i += kThreads)
+        x[static_cast<long long>(sys) * D + i] = nan ? __int_as_float(0x7fffffff) : v[i] + rv[i];
+    }
+    __syncthreads();  // the next batch reuses the shared vectors and the flag
+    stamp(4);
   }
+}
 
-  // ---- solve, then one refinement step with an f64 residual ------------
-  tri_solve(A, D, ld, pt, v);
-  const float* bg = b + static_cast<long long>(blockIdx.x) * D;
-  for (int i = warp; i < D; i += kWarps) {
-    const float* row = Sg + static_cast<long long>(i) * D;
-    double s = 0.0;
-    for (int j = lane; j < D; j += 32) s += static_cast<double>(row[j]) * v[j];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
-    if (lane == 0) rv[i] = static_cast<float>(static_cast<double>(bg[i]) - s);
+// `n` grid barriers and nothing else: what one barrier of the grid route costs.
+__global__ void __launch_bounds__(kThreads, 1) grid_sync_probe_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
+// Blocks of a cooperative launch of `kernel`: one per SM, or 0 when the
+// device cannot hold them all at once (or has no cooperative launch).
+template <typename K>
+int resident_grid(K kernel, size_t smem) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess || !coop)
+    return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+      cudaSuccess)
+    return 0;
+  return per_sm >= 1 ? sms : 0;
+}
+
+int launch_grid(const float* S, const float* b, int g, int d, float* work, float* x,
+                long long* clocks, cudaStream_t stream) {
+  int T = (d + kNB - 1) / kNB;
+  const size_t smem = grid_smem_bytes(T);
+  if (smem > static_cast<size_t>(max_smem_optin())) return static_cast<int>(cudaErrorInvalidValue);
+  // residency, checked once per shared-memory size: a grid barrier on
+  // blocks that are not all resident would hang the card
+  static size_t checked_smem = 0;
+  static int blocks = 0;
+  if (checked_smem != smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    blocks = resident_grid(chol_grid_kernel, smem);
+    checked_smem = smem;
   }
-  __syncthreads();
-  tri_solve(A, D, ld, pt, rv);
-  for (int i = tid; i < D; i += kThreads)
-    x[static_cast<long long>(blockIdx.x) * D + i] =
-        ok ? v[i] + rv[i] : __int_as_float(0x7fffffff);
+  if (blocks < kGridSys) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&S, &b, &g, &d, &T, &work, &x, &clocks};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chol_grid_kernel), dim3(blocks),
+                                  dim3(kThreads), args, smem, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -823,18 +1175,51 @@ extern "C" int chol_solve_cluster_f32(const float* S, const float* b, int g, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Large-D route: one block per system over a working copy `work` [g, d, d].
-extern "C" int chol_solve_f32(const float* S, const float* b, int g, int d,
-                              float* work, float* x, void* stream) {
-  const int ld = ((d + 31) & ~31) + 1;
-  const size_t smem = (static_cast<size_t>(kNB) * ld + 2 * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  chol_solve_kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      S, b, d, ld, work, x);
+// Floats of the work buffer the large-D route needs for g systems of size d
+// (-1 when that exceeds an int).
+extern "C" int chol_grid_work_floats(int g, int d) {
+  const long long n = static_cast<long long>(g) * grid_work_floats((d + kNB - 1) / kNB);
+  return n <= 0x7fffffffLL ? static_cast<int>(n) : -1;
+}
+
+// Blocks of the large-D route's cooperative grid for systems of size d on
+// the current device: one per SM, 0 when they cannot all be resident.
+extern "C" int chol_grid_blocks(int d) {
+  const size_t smem = grid_smem_bytes((d + kNB - 1) / kNB);
+  if (smem > static_cast<size_t>(max_smem_optin())) return 0;
+  if (cudaFuncSetAttribute(chol_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  return resident_grid(chol_grid_kernel, smem);
+}
+
+// Large-D route: one cooperative launch, the blocks split between up to
+// kGridSys systems at a time, over `work` (chol_grid_work_floats floats,
+// any content). Returns a cudaError_t; cudaErrorCooperativeLaunchTooLarge
+// when the grid cannot be resident at once.
+extern "C" int chol_solve_grid_f32(const float* S, const float* b, int g, int d, float* work,
+                                   float* x, void* stream) {
+  return launch_grid(S, b, g, d, work, x, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The same launch with block 0's clock64 spans added into `clocks` (5
+// int64 on the device: load, factor, back pass, residual, refinement
+// passes), for the phase split in the header.
+extern "C" int chol_solve_grid_clocks_f32(const float* S, const float* b, int g, int d,
+                                          float* work, float* x, long long* clocks,
+                                          void* stream) {
+  return launch_grid(S, b, g, d, work, x, clocks, static_cast<cudaStream_t>(stream));
+}
+
+// An empty cooperative kernel of n grid barriers on the large-D route's
+// grid: what a barrier costs.
+extern "C" int chol_grid_sync_probe(int n, void* stream) {
+  const int blocks = resident_grid(grid_sync_probe_kernel, 0);
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&n};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(reinterpret_cast<void*>(grid_sync_probe_kernel), dim3(blocks),
+                                  dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

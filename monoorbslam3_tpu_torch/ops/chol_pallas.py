@@ -12,7 +12,9 @@ The refinement step is the port's addition to the TPU kernel. An f32
 Cholesky solve of the BA's Jacobi-scaled reduced systems (condition ~1.6e3)
 lands up to 8e-4 (relative) from the float64 solution, whichever library
 computes it; with the step it lands below 1e-6 (measured on the CPU on the
-bench window's systems).
+bench window's systems). The polish window's systems (D = 1440, condition
+~4.8e4) land 2e-4 to 6e-4 from float64 after the step, kernel and plain
+version alike (measured on an H100 by `chip_smoke.py`).
 
 `chol_solve` dispatches on the device: a CUDA tensor launches a hand kernel
 of `csrc/chol_solve.cu`, a CPU tensor takes `chol_solve_plain`,
@@ -24,8 +26,10 @@ refinement step. On the card the kernel is chosen by D (`route`):
   blocks, `cluster_shape`): one thread-block cluster per system, the
   factor held in the blocks' shared memory (`chol_solve_cluster`, counter
   `chol_solve`);
-- larger D (the full polish's 1440): one block per system over a working
-  copy in global memory (`chol_solve_l2`, counter `chol_solve_l2`).
+- larger D (the full polish's 1440): one cooperative launch that spreads
+  each system over the card's SMs, the factor in 16 x 16 tiles of a working
+  copy that stays in the L2 cache (`chol_solve_l2`, counter
+  `chol_solve_l2`); up to two systems share the grid at a time.
 
 Both are hand kernels; a launch either route refuses raises. A matrix that
 is not positive definite (a pivot that is not > 0, NaN included) gives an
@@ -108,10 +112,19 @@ def chol_solve_cluster(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _launch(S, b, "chol_solve_cluster_f32", "chol_solve")
 
 
+def _grid_work(Sc: torch.Tensor) -> torch.Tensor:
+    """The large-D route's work buffer for the flattened batch Sc (any
+    content: the kernel writes every word before it reads it)."""
+    n = cuda_lib.lib().chol_grid_work_floats(Sc.shape[0], Sc.shape[-1])
+    if n < 0:
+        raise ValueError(f"chol_solve: work buffer for {tuple(Sc.shape)} exceeds 2^31 floats")
+    return torch.empty(n, dtype=torch.float32, device=Sc.device)
+
+
 def chol_solve_l2(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The large-D route's kernel; it factors in a working copy, so S itself
-    is left untouched."""
-    return _launch(S, b, "chol_solve_f32", "chol_solve_l2", torch.empty_like)
+    """The large-D route's kernel (any D); it factors in a working copy, so
+    S itself is left untouched."""
+    return _launch(S, b, "chol_solve_grid_f32", "chol_solve_l2", _grid_work)
 
 
 def chol_solve_cuda(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

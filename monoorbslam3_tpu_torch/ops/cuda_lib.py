@@ -52,8 +52,16 @@ _SIGNATURES = {
     "chol_cluster_size": [],
     # -> the largest D of the cluster route on the current device
     "chol_cluster_max_d": [],
+    # G, D -> floats of the large-D route's work buffer
+    "chol_grid_work_floats": [_I, _I],
+    # D -> blocks of the large-D route's cooperative grid (0: not resident)
+    "chol_grid_blocks": [_I],
     # S, b, G, D, work, x, stream
-    "chol_solve_f32": [_P, _P, _I, _I, _P, _P, _P],
+    "chol_solve_grid_f32": [_P, _P, _I, _I, _P, _P, _P],
+    # S, b, G, D, work, x, clocks (5 int64 on the device), stream
+    "chol_solve_grid_clocks_f32": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # n grid barriers in an empty kernel, stream
+    "chol_grid_sync_probe": [_I, _P],
 }
 
 

@@ -88,11 +88,12 @@ def _check_inputs(img, ys, xs):
 
 def gather_patches_plain(img: torch.Tensor, ys: torch.Tensor,
                          xs: torch.Tensor) -> torch.Tensor:
-    """Index-gather version. Corners are clamped into the atlas like
-    `lax.dynamic_slice` clamps its start indices."""
+    """Index-gather version. Corners are treated as `lax.dynamic_slice`
+    treats its start indices: a negative one counts from the far border
+    (c + size), then all are clamped into the atlas."""
     ha, wa = img.shape
-    y0 = ys.long().clamp(0, ha - PATCH)
-    x0 = xs.long().clamp(0, wa - PATCH)
+    y0 = torch.where(ys < 0, ys + ha, ys).long().clamp(0, ha - PATCH)
+    x0 = torch.where(xs < 0, xs + wa, xs).long().clamp(0, wa - PATCH)
     r = torch.arange(PATCH, device=img.device)
     return img[(y0[:, None] + r)[:, :, None], (x0[:, None] + r)[:, None, :]]
 

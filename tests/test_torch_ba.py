@@ -20,6 +20,7 @@ import torch
 import bench
 import chip_smoke
 from experiments import port_chol_cluster_emulate as chol_emulate
+from experiments import port_chol_grid_emulate as grid_emulate
 from monoorbslam3_tpu.backend import residuals as jres
 from monoorbslam3_tpu.backend import solver as jsolver
 from monoorbslam3_tpu.ops.chol_pallas import chol_solve_pallas
@@ -331,6 +332,45 @@ def test_chol_cluster_schedule():
     assert not ok and np.isnan(x).all()
 
 
+@pytest.mark.parametrize("D", [769, 1000, 1440])
+def test_chol_grid_schedule(D):
+    """The numpy emulation of K4's large-D schedule (tiles in a work buffer
+    shared by every block, one grid barrier per panel, every block's own
+    factor of the next diagonal tile, the look-ahead, the folded forward
+    pass, the leader's substitutions) at the first D past the cluster
+    route, a ragged D and the full polish's 1440: no location is written by
+    one task and touched by another between two barriers, every block
+    holds the same Li and the same pivot flag, T + 4 barriers, and the
+    solution lies within 1e-5 of float64; a non-SPD system raises the flag
+    and comes out all-NaN. A guard on the experiment's model only: the
+    kernel itself is held to float64 by tests/test_torch_cuda.py and
+    chip_smoke.py on the card."""
+    rng = np.random.default_rng(2000 + D)
+    S, b = (a[0] for a in chip_smoke.seeded_spd(D, rng))
+    x, g, ok = grid_emulate.grid_solve(S, b)
+    ref = np.linalg.solve(S.astype(np.float64), b.astype(np.float64))
+    assert ok and np.linalg.norm(x - ref) / np.linalg.norm(ref) < 1e-5
+    T = -(-D // 16)
+    assert g.barriers == T + 4
+    assert g.tasks == sum((T - k - 2) * (T - k - 1) // 2 for k in range(T - 1)) + T * (T - 1) // 2
+    if D == 1000:
+        x, _, ok = grid_emulate.grid_solve(chip_smoke.seeded_not_spd(D, rng, "indefinite"), b)
+        assert not ok and np.isnan(x).all()
+
+
+def test_chol_grid_ledger_finds_a_race():
+    """The emulation's ledger does fail when two tasks touch one location
+    between two barriers (so its silence above means something)."""
+    g = grid_emulate.Ledger()
+    g.write("a", "tile", 1.0)
+    with pytest.raises(AssertionError):
+        g.read("b", "tile")
+    g.sync()
+    assert g.read("b", "tile") == 1.0
+    with pytest.raises(AssertionError):
+        g.write("a", "tile", 2.0)
+
+
 # ---------------------------------------------------------------------------
 # the bench window
 # ---------------------------------------------------------------------------
@@ -373,3 +413,45 @@ def test_bench_window_full_size():
     c0, c = float(jinfo["cost0"]), float(jinfo["cost"])
     assert abs(float(tinfo["cost0"]) - c0) <= 1e-5 * c0
     assert abs(float(tinfo["cost"]) - c) <= 1e-3 * c
+
+
+POLISH_SMALL = dict(n_kf=12, n_fixed=1, n_pts=256, obs_per_kf=48)
+
+
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "parallel"])
+def test_polish_window_small(deferred):
+    """A polish-shaped window (every keyframe free but the anchor, grouped
+    layout, 12 iterations, as chip_smoke.polish_ba runs at 96 keyframes),
+    each package on its own build of the window: cost0 within 1e-4 and the
+    converged cost within 1e-3 relative of the JAX package's, the
+    tolerances `test_schur_ba` states."""
+    jp, jcam = bench.build_problem(seed=0, **POLISH_SMALL)
+    tp, tcam = bench_window.build_problem(seed=0, device="cpu", **POLISH_SMALL)
+    kw = dict(n_iters=chip_smoke.POLISH_ITERS, deferred=deferred,
+              grouped_obs=POLISH_SMALL["obs_per_kf"])
+    _, _, jinfo = jsolver.schur_ba(jp, jcam, jnp.asarray(I3), jnp.asarray(Z3), **kw)
+    _, tpts, tinfo = tsolver.schur_ba(tp, tcam, torch.eye(3), torch.zeros(3), **kw)
+    c0, c = float(jinfo["cost0"]), float(jinfo["cost"])
+    assert c < 0.05 * c0  # the window really converges
+    assert abs(float(tinfo["cost0"]) - c0) <= 1e-4 * c0
+    assert abs(float(tinfo["cost"]) - c) <= 1e-3 * c
+    assert tinfo["cost_hist"].shape == (chip_smoke.POLISH_ITERS,)
+    assert bool(torch.isfinite(tpts).all())
+
+
+def test_polish_constants():
+    """chip_smoke's polish window is the full polish's capacities of the
+    JAX package's mapper config (full_k, full_p, full_opk), D = 15 K."""
+    import inspect
+
+    from monoorbslam3_tpu.backend import problems as jproblems
+
+    owners = [c for c in vars(jproblems).values() if inspect.isclass(c)
+              and "full_k" in inspect.signature(c.__init__).parameters]
+    assert len(owners) == 1
+    params = inspect.signature(owners[0].__init__).parameters
+    w = chip_smoke.POLISH_WINDOW
+    for name, val in (("full_k", w["n_kf"]), ("full_p", w["n_pts"]), ("full_opk", w["obs_per_kf"])):
+        assert params[name].default == val, name
+    assert all(kw["grouped_obs"] == w["obs_per_kf"] for kw in chip_smoke.POLISH_VARIANTS.values())
+    assert 15 * w["n_kf"] == 1440

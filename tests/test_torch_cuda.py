@@ -41,6 +41,42 @@ def test_gather_kernel_matches_plain(cuda):
     assert torch.equal(out, tpk.gather_patches_plain(atlas, ys, xs))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 52), (48, 48), (301, 1023), (97, 50)])
+@pytest.mark.parametrize("K", [1024, 13])
+def test_gather_kernel_shapes(cuda, shape, K):
+    """K1 on atlases whose row pitch is and is not a multiple of 16 bytes
+    (the kernel's loads are scalar, only its stores are 16 bytes wide), down
+    to an atlas of one window, with corners clamped at all four borders:
+    bit-exact."""
+    ha, wa = shape
+    rng = np.random.default_rng(ha + wa + K)
+    atlas = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32), device=cuda)
+    ys = rng.integers(0, ha - 47, K).astype(np.int32)
+    xs = rng.integers(0, wa - 47, K).astype(np.int32)
+    ys[:8] = [-7, ha, 0, ha - 48, -1, ha - 47, 3, 2 * ha]
+    xs[:8] = [0, wa - 48, -9, wa + 5, wa - 47, -1, 2 * wa, 4]
+    ys, xs = torch.as_tensor(ys, device=cuda), torch.as_tensor(xs, device=cuda)
+    n0 = cuda_lib.launches["gather_patches"]
+    out = tpk.gather_patches_dyn(atlas, ys, xs)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["gather_patches"] == n0 + 1
+    assert torch.equal(out, tpk.gather_patches_plain(atlas, ys, xs))
+
+
+@pytest.mark.gpu
+def test_gather_kernel_unaligned_base(cuda):
+    """An atlas whose base is not 16-byte aligned (a slice of a longer
+    buffer): bit-exact."""
+    rng = np.random.default_rng(3)
+    buf = torch.as_tensor(rng.uniform(0, 255, 1 + 64 * 64).astype(np.float32), device=cuda)
+    atlas = buf[1:].view(64, 64)
+    ys = torch.as_tensor(rng.integers(-4, 24, 40).astype(np.int32), device=cuda)
+    xs = torch.as_tensor(rng.integers(-4, 24, 40).astype(np.int32), device=cuda)
+    assert torch.equal(tpk.gather_patches_dyn(atlas, ys, xs),
+                       tpk.gather_patches_plain(atlas, ys, xs))
+
+
 def _match_args(N, M, device, seed=11):
     rng = np.random.default_rng(seed)
     da = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
@@ -154,8 +190,9 @@ def test_chol_kernel_matches_f64(cuda, D):
     limit, in 228,368 bytes of shared memory a block, under the 232,448 a
     block may take) launches the cluster kernel
     (counter `chol_solve`); 769 and the full polish's 1440 launch the
-    large-D kernel (`chol_solve_l2`). The capacity the kernel reports is
-    the one the numpy emulation of its schedule computes."""
+    large-D kernel (`chol_solve_l2`), one cooperative launch over the
+    card. The capacity the kernel reports is the one the numpy emulation of
+    its schedule computes."""
     from chip_smoke import seeded_spd
     from experiments import port_chol_cluster_emulate as emu
     from monoorbslam3_tpu_torch.ops import chol_pallas as cp
@@ -199,3 +236,53 @@ def test_chol_kernel_not_spd(cuda, kernel, kind):
     assert torch.isnan(x[0]).all() and torch.isnan(xp[0]).all()
     ref = torch.linalg.solve(S[1].double(), b[1].double())
     assert float((x[1].double() - ref).norm() / ref.norm()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("D", [5, 769, 1000, 1440, 1600])
+def test_chol_grid_route(cuda, D, G):
+    """K4's large-D route (the cooperative grid kernel) called directly, at
+    the first D past the cluster route, a ragged D, the full polish's 1440,
+    a D below one tile, and 1600 (100 row blocks: more tiles a substitution
+    step than a warp prefetches); one system, two that share the grid,
+    three (two batches): within 1e-5 of float64, bit-identical across two
+    runs, on a grid of more than one block per system."""
+    from chip_smoke import seeded_spd
+    from monoorbslam3_tpu_torch.ops import chol_pallas as cp
+
+    S, b = seeded_spd(D, np.random.default_rng(100 * D + G), G=G)
+    tS, tb = torch.as_tensor(S, device=cuda), torch.as_tensor(b, device=cuda)
+    assert cuda_lib.lib().chol_grid_blocks(D) >= 4
+    n0 = cuda_lib.launches["chol_solve_l2"]
+    x1 = cp.chol_solve_l2(tS, tb)
+    x2 = cp.chol_solve_l2(tS, tb)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["chol_solve_l2"] == n0 + 2
+    assert torch.equal(x1, x2)
+    x = x1.cpu().numpy().astype(np.float64)
+    for g in range(G):
+        ref = np.linalg.solve(S[g].astype(np.float64), b[g].astype(np.float64))
+        assert np.linalg.norm(x[g] - ref) / np.linalg.norm(ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["indefinite", "negative definite"])
+def test_chol_grid_route_not_spd_1000(cuda, kind):
+    """A 1000 x 1000 system that is not positive definite between two SPD
+    ones (three systems: the grid's two slots and a second batch): all-NaN
+    for it alone, its neighbours within 1e-5 of float64."""
+    from chip_smoke import seeded_not_spd, seeded_spd
+    from monoorbslam3_tpu_torch.ops import chol_pallas as cp
+
+    rng = np.random.default_rng(1000)
+    S_spd, b_spd = seeded_spd(1000, rng, G=2)
+    S = torch.as_tensor(np.stack([S_spd[0], seeded_not_spd(1000, rng, kind), S_spd[1]]),
+                        device=cuda)
+    b = torch.as_tensor(np.stack([b_spd[0], np.ones(1000, np.float32), b_spd[1]]), device=cuda)
+    x = cp.chol_solve(S, b)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[1]).all()
+    for g in (0, 2):
+        ref = torch.linalg.solve(S[g].double(), b[g].double())
+        assert float((x[g].double() - ref).norm() / ref.norm()) < 1e-5

@@ -110,6 +110,24 @@ def test_gather_plain_bit_exact_to_jax():
     np.testing.assert_array_equal(out.numpy(), ref)  # tolerance: bit-exact
 
 
+@pytest.mark.parametrize("shape", [(61, 50), (300, 383), (48, 48), (97, 1023)])
+def test_gather_plain_clamped_odd_widths(shape):
+    """K1's plain version against JAX `gather_patches_dyn` (its CPU path,
+    `vmap(dynamic_slice)`) on atlases whose width is not a multiple of 4
+    (and one that is a single window), with corners beyond all four
+    borders: clamped alike, bit-exact."""
+    ha, wa = shape
+    rng = np.random.default_rng(ha * wa)
+    atlas = rng.uniform(0, 255, shape).astype(np.float32)
+    ys = rng.integers(-20, ha + 20, 64).astype(np.int32)
+    xs = rng.integers(-20, wa + 20, 64).astype(np.int32)
+    ys[:8] = [-7, ha, 0, ha - 48, -1, ha - 47, 3, 2 * ha]
+    xs[:8] = [0, wa - 48, -9, wa + 5, wa - 47, -1, 2 * wa, 4]
+    ref = np.asarray(jpk.gather_patches_dyn(jnp.asarray(atlas), jnp.asarray(ys), jnp.asarray(xs)))
+    out = tpk.gather_patches_dyn(torch.as_tensor(atlas), torch.as_tensor(ys), torch.as_tensor(xs))
+    np.testing.assert_array_equal(out.numpy(), ref)  # tolerance: bit-exact
+
+
 def test_ic_angles_close(patches):
     """Tolerance 1e-4 rad; measured 1.5e-6 rad on these 84 patches."""
     ref = np.asarray(jorb.ic_angles(jnp.asarray(patches)))
