@@ -2,19 +2,28 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's four paths, each with the kernel launch counts set to 0 just
-before it and read just after:
+port's six paths, each with the kernel launch counts set to 0 just before
+it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
    finish_features -> coarse stage -> local stage) over 40 rendered
    EuRoC-size frames (kernels K1, K2);
-2. mapper search: the keyframe searches of local mapping on rendered
+2. visual-inertial tracking: the same frames with IMU samples (200 Hz, the
+   EuRoC noise densities, a constant bias) between them; each frame
+   preintegrates its own and its keyframe's window on the card, predicts
+   its state from the keyframe through the IMU, runs the coarse stage from
+   that prediction and the local stage with the whitened inertial edge in
+   the 15-dim pose LM (K1, K2); the calibration comes from
+   `settings/euroc.yaml`;
+3. mapper search: the keyframe searches of local mapping on rendered
    EuRoC-size keyframes, triangulation of a keyframe pair and the fuse of
    the new points into a third keyframe (K3);
-3. window BA: `schur_ba` on the `bench.py` window (24+8 keyframes, 2048
+4. fisheye mapper search: the same search with the TUM-VI camera
+   (`settings/tum_vi.yaml`: 512x512, Kannala-Brandt) (K3);
+5. window BA: `schur_ba` on the `bench.py` window (24+8 keyframes, 2048
    points, 6144 observations), flat and grouped layouts (K4, its cluster
    route);
-4. polish BA: `schur_ba` on the full polish's window (96 keyframes, all
+6. polish BA: `schur_ba` on the full polish's window (96 keyframes, all
    free but the anchor, 4096 points, 18,432 observations, grouped layout;
    D = 1440), deferred and parallel-lambda LM, 12 iterations (K4, its
    large-D route: 12 launches a solve).
@@ -47,10 +56,13 @@ of its cache state.
 Exits non-zero, without the final `{"ok": true, ...}` line, when no CUDA
 device is present, when a kernel fails to build, launch or agree, when a
 kernel was never launched by its path, when a tracked frame keeps fewer
-than 12 inliers or the median pose error exceeds its bound, when the
-mapper search or either BA path's costs leave the bounds set by the JAX
-package's run of the same inputs on the CPU, or when the polish path's
-solves launch anything but K4's large-D route. Prints, before the last line, the
+than 12 inliers or a median pose or prediction error exceeds its bound,
+when either mapper search or either BA path's costs leave the bounds set
+by the JAX package's run of the same inputs on the CPU, when the inertial
+stage (preintegration, deltas, prediction, whitening) waits for the card
+even once, when the card's preintegration or whitening leaves the same
+functions on the CPU, or when the polish path's solves launch anything
+but K4's large-D route. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -58,19 +70,22 @@ launches, error and times.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 
-# EuRoC MAV cam0 (settings/euroc.yaml:3-8): 752x480, radtan k1 k2 p1 p2
-EUROC_CAM = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375,
-                 dist=[-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05],
-                 width=752, height=480)
+SETTINGS = Path(__file__).resolve().parent / "settings"
+# EuRoC MAV (settings/euroc.yaml): the camera of both drives and of the
+# first mapper search (cam0, 752x480, radtan), the IMU of the inertial drive
+EUROC_PROFILE = "euroc.yaml"
+
 # ORB settings of settings/euroc.yaml:9-14
 N_FEAT, N_LEVELS, SCALE = 1024, 8, 1.2
 FPS = 20.0
@@ -99,6 +114,30 @@ MAX_MEDIAN_T_ERR_M = 0.003
 MAX_MEDIAN_R_ERR_DEG = 0.05
 
 
+# visual-inertial drive: the visual drive's frames with IMU samples between
+# them at the profile's rate and noise densities (settings/euroc.yaml:15-20)
+# and a constant bias (tests/test_e2e_synthetic.py:42-43). The profile
+# gives the IMU's noise model; the extrinsics stay the rendering rig's
+# (R_BC, T_BC), since the world is rendered through it.
+BG_TRUE = np.array([0.004, -0.003, 0.002])
+BA_TRUE = np.array([0.03, -0.02, 0.05])
+VI_IMU_SEED = 9
+# bounds: twice the medians of the same drive through the JAX package on
+# the CPU (experiments/port_slice_drive_jax.py --inertial: 0.0760 mm and
+# 0.00388 deg after the local stage, 0.0600 mm and 0.00635 deg for the
+# IMU-only prediction from the keyframe before any vision; PERF.md records
+# the run), rounded up
+MAX_VI_MEDIAN_T_ERR_M = 1.53e-4
+MAX_VI_MEDIAN_R_ERR_DEG = 0.0078
+MAX_VI_MEDIAN_PRED_T_ERR_M = 1.21e-4
+MAX_VI_MEDIAN_PRED_R_ERR_DEG = 0.0127
+# host syncs a frame: the JAX package's inertial frame makes three (sync A
+# of track_feats with the features, both windows and the deltas, then one
+# fetch per stage); the drive may make no more
+MAX_VI_SYNCS_PER_FRAME = 3
+# the card's preintegration and whitening against the port's on the CPU
+VI_CARD_RTOL = 1e-5
+
 # mapper search: keyframes at t = 0 and 0.5 s (0.87 m apart on the circle,
 # the wall ~6 m away) are triangulated; the new points are fused into the
 # keyframe at 0.25 s, with the fuse radius of LocalMapping._dispatch_fuse
@@ -112,6 +151,15 @@ FUSE_RADIUS = 4.0
 MIN_ACCEPTED = 235
 MAX_MEDIAN_TRI_ERR_M = 0.107
 MIN_FUSED = 195
+# the same search with the TUM-VI fisheye (settings/tum_vi.yaml), bounds
+# from experiments/port_mapper_jax.py's run of it (159 accepted, median 3D
+# error 398.8 mm, 122 fused; PERF.md records it): 90% of the counts, 1.5x
+# the error. At 191 px of focal length the same half-pixel error moves a
+# point ~2.4 times as far as at EuRoC's 458.
+FISHEYE_PROFILE = "tum_vi.yaml"
+MIN_ACCEPTED_FISHEYE = 143
+MAX_MEDIAN_TRI_ERR_FISHEYE_M = 0.598
+MIN_FUSED_FISHEYE = 109
 
 # window BA: 10 LM iterations on bench_window.build_problem(seed=0); the
 # JAX package's costs for the same window on the CPU
@@ -283,10 +331,9 @@ class MapWindow:
 def drive(pipe, n_frames=40, log=print):
     """Track `n_frames` rendered frames through `pipe` (see TorchPipe for
     its interface). Returns per-frame records."""
-    from monoorbslam3_tpu_torch.models.camera import Pinhole
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    cam_cpu = Pinhole.create(**EUROC_CAM, device="cpu")
+    cam_cpu = host_camera(pipe.profile)
     world = ImageWorld()
     traj = world.traj
     mapw = MapWindow()
@@ -316,7 +363,7 @@ def drive(pipe, n_frames=40, log=print):
         f = rc["feats"]
         ci = rc["ci"]
         coarse_pid = np.where(ci >= 0, cand_ids[np.maximum(ci, 0)], -1)
-        state_c = _state(*rc["state"]) if rc["n_match"] >= MIN_INLIERS else pred
+        state_c = _state(*rc["state"][:2]) if rc["n_match"] >= MIN_INLIERS else pred
         lc, win = mapw.local_candidates(coarse_pid, f["sigma2"])
         rl = pipe.local(state_c, lc)
         t2 = time.perf_counter()
@@ -343,14 +390,103 @@ def drive(pipe, n_frames=40, log=print):
     return records
 
 
+def _vi_state(traj, t):
+    """The true body state at t with the true biases, float32."""
+    return tuple(np.asarray(a, np.float32) for a in
+                 (traj.R_wb(t), traj.pos(t), traj.vel(t), BG_TRUE, BA_TRUE))
+
+
+def host_camera(profile):
+    """The camera of `profile` (a file under settings/) on the CPU, for
+    rendering and scoring: the one source of every path's camera."""
+    from monoorbslam3_tpu_torch import config
+
+    return config.build_camera(config.load_settings(SETTINGS / profile), device="cpu")
+
+
+def vi_drive(pipe, n_frames=40, log=print):
+    """The visual drive's frames through `pipe`'s inertial step: IMU samples
+    of the trajectory between frames (the pipe's profile's rate and noise
+    densities, BG_TRUE/BA_TRUE), a frame window and a keyframe window (host
+    `ImuBuffer`s); every SEED_EVERY frames the map is re-seeded, that frame
+    becomes the keyframe with its true state and biases, and the keyframe
+    window restarts. Returns (per-frame records, the last frame's keyframe
+    window and keyframe state)."""
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer
+    from monoorbslam3_tpu_torch.sim import ImageWorld
+
+    settings = config.load_settings(SETTINGS / pipe.profile)
+    cam_cpu = config.build_camera(settings, device="cpu")
+    imu = settings["IMU"]
+    freq = float(imu["Frequency"])
+    noise = dict(noise_gyro=float(imu["NoiseGyro"]), noise_acc=float(imu["NoiseAcc"]))
+    world = ImageWorld()
+    traj = world.traj
+    mapw = MapWindow()
+    rng = np.random.default_rng(VI_IMU_SEED)
+
+    img0 = world.render(0.0, cam_cpu, R_BC, T_BC, rng=np.random.default_rng(0))
+    feats0 = pipe.features(img0)
+    ids, fidx = mapw.seed(world, cam_cpu, 0.0, feats0)
+    prev_ids, prev_ang = ids, feats0["angle"][fidx]
+    kf, kf_buf = _vi_state(traj, 0.0), ImuBuffer()
+    records = []
+    for i in range(1, n_frames):
+        t_prev, t = (i - 1) / FPS, i / FPS
+        img = world.render(t, cam_cpu, R_BC, T_BC, rng=np.random.default_rng(i))
+        g, a, d = traj.imu_samples(t_prev, t, freq, bg=BG_TRUE, ba=BA_TRUE, rng=rng, **noise)
+        fr_buf = ImuBuffer()
+        for k in range(len(d)):
+            fr_buf.add(g[k], a[k], d[k])
+            kf_buf.add(g[k], a[k], d[k])
+        t0 = time.perf_counter()
+        cand, cand_ids = mapw.coarse_candidates(prev_ids, prev_ang)
+        rc = pipe.vi_coarse(img, fr_buf, kf_buf, kf, cand)
+        t1 = time.perf_counter()
+        f = rc["feats"]
+        ci = rc["ci"]
+        coarse_pid = np.where(ci >= 0, cand_ids[np.maximum(ci, 0)], -1)
+        pred = tuple(rc["pred"])
+        state_c = tuple(rc["state"]) if rc["n_match"] >= MIN_INLIERS else pred
+        lc, win = mapw.local_candidates(coarse_pid, f["sigma2"])
+        rl = pipe.vi_local(state_c, lc)
+        t2 = time.perf_counter()
+        new = np.full(N_FEAT, -1, np.int64)
+        new[rl["keep_coarse"]] = coarse_pid[rl["keep_coarse"]]
+        lsel = rl["lci"] >= 0
+        new[lsel] = win[rl["lci"][lsel]]
+        prev_ids, prev_ang = new[new >= 0], f["angle"][new >= 0]
+        st = rl["state"]
+        R_true, p_true, v_true = traj.R_wb(t), traj.pos(t), traj.vel(t)
+        rec = dict(frame=i, n_imu=int(kf_buf.n), n_match=int(rc["n_match"]),
+                   n_inl_coarse=int(rc["n_inl"]), n_inliers=int(rl["n_inl"]),
+                   n_hit=int(rl["hit"].sum()),
+                   t_err_m=float(np.linalg.norm(st[1] - p_true)),
+                   r_err_deg=_rot_err_deg(R_true, st[0]),
+                   v_err_mps=float(np.linalg.norm(st[2] - v_true)),
+                   pred_t_err_m=float(np.linalg.norm(pred[1] - p_true)),
+                   pred_r_err_deg=_rot_err_deg(R_true, pred[0]),
+                   host_coarse_ms=1e3 * (t1 - t0), host_local_ms=1e3 * (t2 - t1),
+                   host_frame_ms=1e3 * (t2 - t0), **rc.get("device_ms", {}),
+                   **rl.get("device_ms", {}))
+        records.append(rec)
+        log(json.dumps(rec))
+        last_window = (kf_buf, kf)
+        if i % SEED_EVERY == 0:
+            mapw.seed(world, cam_cpu, t, f)
+            kf, kf_buf = _vi_state(traj, t), ImuBuffer()
+    return records, last_window
+
+
 def mapper_search(pipe, log=print):
     """Render the KF_TIMES keyframes, triangulate the first two through
     `pipe`, fuse the accepted points into the third, and score both against
-    the renderer's true world points. Returns a summary record."""
-    from monoorbslam3_tpu_torch.models.camera import Pinhole
+    the renderer's true world points, all with the camera of `pipe.profile`.
+    Returns a summary record."""
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    cam_cpu = Pinhole.create(**EUROC_CAM, device="cpu")
+    cam_cpu = host_camera(pipe.profile)
     world = ImageWorld()
     poses, feats = [], []
     for i, t in enumerate(KF_TIMES):
@@ -395,8 +531,6 @@ def window_ba(device, n_runs=15, log=print, window=None, variants=None, iters=BA
     of `n_runs` whole solves, each ending in the one fetch of its result and
     a synchronize. Returns {variant: record}, with the reduced systems
     under "systems"."""
-    import warnings
-
     import torch
 
     from monoorbslam3_tpu_torch.backend.solver import schur_ba
@@ -418,22 +552,13 @@ def window_ba(device, n_runs=15, log=print, window=None, variants=None, iters=BA
 
         fetch(solve()[1]["cost"], syncs)  # warm-up
         solver = "chol_solve_cuda" if on_card else "chol_solve_plain"
-        with _Capture(chol_pallas, solver, maxlen=None) as k4, \
-                warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if on_card:
-                torch.cuda.set_sync_debug_mode("warn")
+        watch = SyncWatch()
+        with _Capture(chol_pallas, solver, maxlen=None) as k4:
             before = dict(cuda_lib.launches)
-            try:
+            with watch(on_card):
                 pts, info = solve()
-            finally:
-                if on_card:
-                    torch.cuda.set_sync_debug_mode("default")
             k4_launches = {k: cuda_lib.launches[k] - before[k]
                            for k in ("chol_solve", "chol_solve_l2")}
-        # the debug mode's own prototype notice is not a sync
-        sync_sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
-                                         if "called a synchronizing" in str(w.message))
         n0 = syncs.n
         host = fetch(dict(cost0=info["cost0"], cost=info["cost"], hist=info["cost_hist"],
                           finite=torch.isfinite(pts).all()), syncs)
@@ -450,7 +575,7 @@ def window_ba(device, n_runs=15, log=print, window=None, variants=None, iters=BA
         out[name] = dict(cost0=float(host["cost0"]), cost=float(host["cost"]),
                          cost_hist=[float(c) for c in host["hist"]],
                          finite=bool(host["finite"]),
-                         syncs_in_solve=sum(sync_sites.values()), sync_sites=dict(sync_sites),
+                         syncs_in_solve=watch.n, sync_sites=dict(watch.sites),
                          fetches_per_solve=fetches, solve_ms=[1e3 * t for t in times],
                          median_solve_ms=1e3 * med, iters_per_s=iters / med,
                          k4_launches_in_solve=k4_launches, systems=list(k4.calls))
@@ -470,32 +595,73 @@ def polish_ba(device, n_runs=7, log=print):
                      variants=POLISH_VARIANTS, iters=POLISH_ITERS)
 
 
-class TorchPipe:
-    """The port's tracking and mapper paths on one device. `features`
-    brings a frame's features to the host (seeding only); `coarse` uploads
-    the frame and the coarse candidates, extracts, runs the coarse stage
-    and reads its result with one fetch; `local` runs the local stage on
-    the same frame with one fetch. `keyframe`, `triangulate` and `fuse` are
-    the mapper search's steps, one fetch each."""
+class SyncWatch:
+    """Counts the host syncs that PyTorch's sync debug mode reports inside
+    `with watch(on_card):` blocks (nothing is counted off the card), and
+    the source lines that made them."""
 
-    def __init__(self, device):
+    def __init__(self):
+        self.n = 0
+        self.sites = collections.Counter()
+
+    @contextlib.contextmanager
+    def __call__(self, on_card):
+        if not on_card:
+            yield
+            return
         import torch
 
-        from monoorbslam3_tpu_torch.models.camera import Pinhole
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the debug mode's own prototype notice is not a sync
+        for w in caught:
+            if "called a synchronizing" in str(w.message):
+                self.n += 1
+                self.sites[f"{w.filename}:{w.lineno}"] += 1
+
+
+class TorchPipe:
+    """The port's tracking and mapper paths on one device, with the camera
+    and IMU calibration of a profile under settings/ (EuRoC's unless told
+    otherwise). `features` brings a frame's features to the host (seeding
+    only); `coarse` uploads the frame and the coarse candidates, extracts,
+    runs the coarse stage and reads its result with one fetch; `local` runs
+    the local stage on the same frame with one fetch. `vi_coarse` and
+    `vi_local` are the inertial frame's two halves, one fetch each.
+    `keyframe`, `triangulate` and `fuse` are the mapper search's steps, one
+    fetch each."""
+
+    def __init__(self, device, profile=EUROC_PROFILE):
+        import torch
+
+        from monoorbslam3_tpu_torch import config
         from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
         from monoorbslam3_tpu_torch.utils.fetch import SyncCounter
 
         self.torch = torch
         self.dev = torch.device(device)
-        self.cam = Pinhole.create(**EUROC_CAM, device=self.dev)
-        self.ext = OrbExtractor(EUROC_CAM["height"], EUROC_CAM["width"],
+        self.profile = profile
+        settings = config.load_settings(SETTINGS / profile)
+        self.cam = config.build_camera(settings, device=self.dev)
+        self.calib = config.build_imu_calib(settings, device=self.dev)
+        self.ext = OrbExtractor(self.cam.height, self.cam.width,
                                 n_features=N_FEAT, n_levels=N_LEVELS, scale=SCALE,
                                 device=self.dev)
         self.R_cb = self._up(R_CB)
         self.t_cb = self._up(T_CB)
         self.t_bc = self._up(T_BC.astype(np.float32))
         self.syncs = SyncCounter()
+        # host syncs inside the inertial stage (preintegration, deltas,
+        # prediction, whitening) and inside the two stage kernels
+        self.inertial_watch = SyncWatch()
+        self.stage_watch = SyncWatch()
         self._feats = None
+        self._vi = None
         self._kfs = []
         self.mapper_times = {}
 
@@ -555,8 +721,8 @@ class TorchPipe:
             c["cand_extra2"], f["xy"], f["desc"], f["valid"], f["angle"], f["sigma2"],
             self.cam, self.R_cb, self.t_cb, c["radius"], RETRY, use_rotation=True)
         e2 = self._event()
-        out = self._fetch(dict(state=(st.R_wb, st.t_wb), ci=ci, n_match=n_match,
-                               n_inl=n_inl, feats=self._host_feats(f)))
+        out = self._fetch(dict(state=st, ci=ci, n_match=n_match, n_inl=n_inl,
+                               feats=self._host_feats(f)))
         out["feats"]["desc"] = out["feats"]["desc"].view(np.uint32)
         out["n_match"], out["n_inl"] = int(out["n_match"]), int(out["n_inl"])
         out["device_ms"] = dict(dev_extract_ms=self._span(e0, e1),
@@ -626,10 +792,80 @@ class TorchPipe:
             self.t_bc, VIEW_COS_GATE, RETRY, _identity_edge(self.dev), z, 0.0,
             use_inertial=False)
         e1 = self._event()
-        out = self._fetch(dict(state=(st.R_wb, st.t_wb), lci=lci, keep_coarse=keep,
-                               hit=hit, n_inl=n_inl))
+        out = self._fetch(dict(state=st, lci=lci, keep_coarse=keep, hit=hit, n_inl=n_inl))
         out["n_inl"] = int(out["n_inl"])
         out["device_ms"] = dict(dev_local_ms=self._span(e0, e1))
+        return out
+
+    def vi_coarse(self, img, fr_buf, kf_buf, kf_state, cand):
+        """The inertial frame's first half. The inertial stage, all on the
+        device and under `inertial_watch`: both windows (`fr_buf`, `kf_buf`)
+        preintegrated at the keyframe's biases, the keyframe window's
+        bias-corrected deltas, and the IMU-only prediction from the
+        keyframe's state. Then extraction and the coarse stage from that
+        prediction. One fetch brings the coarse result, the prediction and
+        both windows' spans home."""
+        from monoorbslam3_tpu_torch.backend.residuals import KfState
+        from monoorbslam3_tpu_torch.frontend.tracking import (_coarse_track_kernel,
+                                                              _predict_deltas,
+                                                              _predict_state_inertial)
+
+        on_card = self.dev.type == "cuda"
+        c = {k: self._up(v) for k, v in cand.items()}
+        e0 = self._event()
+        with self.inertial_watch(on_card):
+            kf = KfState(*(self._up(a) for a in kf_state))
+            pre_f = fr_buf.integrate(kf.bg, kf.ba, self.calib)
+            pre_kf = kf_buf.integrate(kf.bg, kf.ba, self.calib)
+            pred = _predict_state_inertial(kf, *_predict_deltas(pre_kf, kf.bg, kf.ba),
+                                           pre_kf.dt)
+        e1 = self._event()
+        f = self._frame(img)
+        self._feats = f
+        self._vi = dict(kf=kf, pre_kf=pre_kf)
+        e2 = self._event()
+        with self.stage_watch(on_card):
+            st, ci, n_match, n_inl = _coarse_track_kernel(
+                pred, c["cand_xyz"], c["cand_desc"], c["cand_valid"], c["cand_ang"],
+                c["cand_extra2"], f["xy"], f["desc"], f["valid"], f["angle"], f["sigma2"],
+                self.cam, self.R_cb, self.t_cb, c["radius"], RETRY, use_rotation=True)
+        e3 = self._event()
+        out = self._fetch(dict(state=st, pred=pred, ci=ci, n_match=n_match, n_inl=n_inl,
+                               dt=(pre_f.dt, pre_kf.dt), feats=self._host_feats(f)))
+        out["feats"]["desc"] = out["feats"]["desc"].view(np.uint32)
+        out["n_match"], out["n_inl"] = int(out["n_match"]), int(out["n_inl"])
+        out["device_ms"] = dict(dev_imu_ms=self._span(e0, e1), dev_extract_ms=self._span(e1, e2),
+                                dev_coarse_ms=self._span(e2, e3))
+        return out
+
+    def vi_local(self, state, cand):
+        """The inertial frame's second half: the keyframe window whitened
+        into an edge (under `inertial_watch`), then the local stage with
+        that edge from the keyframe's state in the 15-dim pose LM. One
+        fetch."""
+        from monoorbslam3_tpu_torch.backend.problems import whiten
+        from monoorbslam3_tpu_torch.backend.residuals import KfState
+        from monoorbslam3_tpu_torch.frontend.tracking import _local_track_kernel
+
+        on_card = self.dev.type == "cuda"
+        state = KfState(*(self._up(a) for a in state))
+        c = {k: self._up(v) for k, v in cand.items()}
+        f = self._feats
+        e0 = self._event()
+        with self.inertial_watch(on_card):
+            edge = whiten(self._vi["pre_kf"])
+        e1 = self._event()
+        with self.stage_watch(on_card):
+            st, lci, keep, hit, n_inl = _local_track_kernel(
+                state, c["cand_xyz"], c["cand_desc"], c["cand_valid"], c["cand_normal"],
+                c["cand_use_vcos"], c["cand_extra2"], c["radius"], c["blockrow"],
+                c["coarse_pts"], c["coarse_inv_s2"], c["coarse_valid"],
+                f["xy"], f["desc"], f["valid"], f["sigma2"], self.cam, self.R_cb, self.t_cb,
+                self.t_bc, VIEW_COS_GATE, RETRY, edge, self._vi["kf"], 1.0, use_inertial=True)
+        e2 = self._event()
+        out = self._fetch(dict(state=st, lci=lci, keep_coarse=keep, hit=hit, n_inl=n_inl))
+        out["n_inl"] = int(out["n_inl"])
+        out["device_ms"] = dict(dev_whiten_ms=self._span(e0, e1), dev_local_ms=self._span(e1, e2))
         return out
 
 
@@ -646,9 +882,11 @@ def _time_kernel(fn, label="", n=TIMED_CALLS, reps=5, warmup=3):
     first event had already been reached when the host finished enqueuing,
     the hold was too short: it is doubled and the window run again. Median
     over `reps` windows, divided by n. A function that synchronizes inside
-    (a library call reading a status back) cannot be held: past a 0.25 s
-    hold its device_ms is the median event span of single calls instead,
-    host time inside the call included, and a line says so.
+    (a library call reading a status back), or whose n calls launch more
+    kernels than the launch queue holds (the host then waits for the held
+    stream), cannot be held: past a 0.25 s hold its device_ms is the median
+    event span of single calls instead, host time inside the call
+    included, and a line says so.
     call_ms: host clock over n calls ending in a synchronize, per call:
     what a launch-bound caller pays for one call."""
     import torch
@@ -681,8 +919,8 @@ def _time_kernel(fn, label="", n=TIMED_CALLS, reps=5, warmup=3):
         elif hold_s < 0.25:
             hold_s *= 2
         else:
-            print(f"timing: {label or 'a call'} synchronizes inside; its device time is the "
-                  "event span of one call")
+            print(f"timing: {label or 'a call'} cannot be held (it synchronizes inside, or its "
+                  "launches fill the launch queue); its device time is the event span of one call")
             return _span_ms(fn, n), call_ms
     return float(np.median(dev)), call_ms
 
@@ -816,11 +1054,13 @@ class _Capture:
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
         self.calls, self.n = collections.deque(maxlen=self.maxlen), 0
+        self.kwargs = collections.deque(maxlen=self.maxlen)
 
-        def spy(*args):
+        def spy(*args, **kwargs):
             self.calls.append(args)
+            self.kwargs.append(kwargs)
             self.n += 1
-            return self.orig(*args)
+            return self.orig(*args, **kwargs)
 
         setattr(self.mod, self.name, spy)
         return self
@@ -1004,6 +1244,76 @@ def _pm1_planes(desc):
     return (1 - 2 * bits).reshape(desc.shape[0], 256).to(torch.bfloat16)
 
 
+def _rel_fields(got, ref):
+    """max |got - ref| / max |ref| over each field of two records."""
+    out = {}
+    for name, g, r in zip(ref._fields, got, ref):
+        g, r = g.double().cpu(), r.double().cpu()
+        out[name] = float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+    return out
+
+
+def vi_card_checks(dev, buf, kf_state, lm_cap):
+    """The inertial stage on the card against the port on the CPU and
+    against the SVD, and its device times, on the drive's last keyframe
+    window `buf` at its keyframe's biases:
+    - `preintegrate_tree` and `whiten` on the card and on the CPU (no TF32
+      or other card-specific arithmetic may creep in: VI_CARD_RTOL);
+    - `Preintegrated.delta_rotation`'s polar step against the SVD
+      projection of the JAX package's `normalize_rotation`, and how many
+      host syncs the SVD makes on the card (sync debug mode);
+    - the CUDA-event span of one call (after a synchronize, so host
+      launch time included: these functions launch 45 to ~3,300 kernels,
+      too many to hold behind a sleep) of the tree, the whitening, the
+      deltas, the SVD projection, and the last local stage's pose LM with
+      its inertial tail and without it (`lm_cap` holds that call). Their
+      device times come from `experiments/port_track_profile.py
+      --inertial`."""
+    import torch
+
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.backend import problems
+    from monoorbslam3_tpu_torch.frontend.tracking import _predict_deltas
+    from monoorbslam3_tpu_torch.utils import lie
+
+    settings = config.load_settings(SETTINGS / EUROC_PROFILE)
+    calib_card = config.build_imu_calib(settings, device=dev)
+    calib_cpu = config.build_imu_calib(settings, device="cpu")
+    bg, ba = kf_state[3], kf_state[4]
+    pre_card = buf.integrate(torch.as_tensor(bg, device=dev), torch.as_tensor(ba, device=dev),
+                             calib_card)
+    pre_cpu = buf.integrate(bg, ba, calib_cpu)
+    edge_card, edge_cpu = problems.whiten(pre_card), problems.whiten(pre_cpu)
+    out = dict(window_samples=int(buf.n), padded_to=int(buf.padded()[0].shape[0]),
+               tree_vs_cpu=_rel_fields(pre_card, pre_cpu),
+               whiten_vs_cpu=_rel_fields(edge_card, edge_cpu))
+    out["max_rel_vs_cpu"] = max(max(out["tree_vs_cpu"].values()),
+                                max(out["whiten_vs_cpu"].values()))
+
+    # the deltas' rotation: Newton-Schulz polar step against the SVD
+    bg_d, ba_d = pre_card.bg, pre_card.ba
+    prod = pre_card.dR @ lie.exp_so3(pre_card.JRg @ (bg_d - pre_card.bg))
+    svd_watch = SyncWatch()
+    with svd_watch(True):
+        R_svd = lie.normalize_rotation(prod)
+    out["svd_syncs"] = svd_watch.n
+    out["polar_vs_svd_max_abs"] = float((lie.polar_rotation(prod) - R_svd).abs().max())
+
+    args, kwargs = lm_cap.calls[-1], lm_cap.kwargs[-1]
+    out["lm_use_inertial"] = bool(kwargs.get("use_inertial"))
+    visual = dict(kwargs, use_inertial=False)
+    calls = {"tree": lambda: buf.integrate(pre_card.bg, pre_card.ba, calib_card),
+             "whiten": lambda: problems.whiten(pre_card),
+             "deltas": lambda: _predict_deltas(pre_card, bg_d, ba_d),
+             "svd": lambda: lie.normalize_rotation(prod),
+             "lm_inertial": lambda: problems._pose_optimize_impl(*args, **kwargs),
+             "lm_visual": lambda: problems._pose_optimize_impl(*args, **visual)}
+    for fn in calls.values():  # warm-up
+        fn()
+    out["span_ms"] = {name: _span_ms(fn, TIMED_CALLS) for name, fn in calls.items()}
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1019,6 +1329,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one", file=sys.stderr)
         return 2
+    from monoorbslam3_tpu_torch.frontend import tracking
     from monoorbslam3_tpu_torch.ops import chol_pallas, cuda_lib, match_pallas, pallas_kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1047,7 +1358,7 @@ def main(argv=None) -> int:
     # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
     # warm-up outside the counted runs (first launches load modules)
-    pipe.features(np.zeros((EUROC_CAM["height"], EUROC_CAM["width"]), np.float32))
+    pipe.features(np.zeros((pipe.cam.height, pipe.cam.width), np.float32))
     warm = torch.zeros((64, 8), dtype=torch.int32, device=dev)
     pallas_kernels.hamming_matrix_cuda(warm, warm)
     chol_pallas.chol_solve_cuda(torch.eye(16, device=dev)[None], torch.ones((1, 16), device=dev))
@@ -1064,7 +1375,27 @@ def main(argv=None) -> int:
     print(f"host syncs: {syncs} over {n_fr} frames + 1 seed frame "
           f"({(syncs - 1) / n_fr:.2f} per tracked frame)")
 
-    # -- path 2, mapper search: triangulate + fuse on rendered keyframes -----
+    # -- path 2, visual-inertial tracking: the drive with the IMU ------------
+    _zero(cuda_lib.launches)
+    pipe.syncs.n = 0
+    with _Capture(match_pallas, "_match_rows_cuda") as vcap, \
+            _Capture(tracking, "_pose_optimize_impl", maxlen=1) as lm_cap:
+        vi_records, (vi_buf, vi_kf) = vi_drive(pipe)
+    torch.cuda.synchronize()
+    vi_launches = dict(cuda_lib.launches)
+    vi_syncs = pipe.syncs.n
+    n_vi = len(vi_records)
+    print("launches in the visual-inertial drive:", json.dumps(vi_launches))
+    print(f"host syncs: {vi_syncs} over {n_vi} frames + 1 seed frame "
+          f"({(vi_syncs - 1) / n_vi:.2f} per tracked frame; the JAX package's inertial "
+          f"frame makes {MAX_VI_SYNCS_PER_FRAME})")
+    print(f"host syncs inside the inertial stage (sync debug mode): {pipe.inertial_watch.n} "
+          f"{json.dumps(dict(pipe.inertial_watch.sites))}; inside the two stage kernels, for "
+          f"information: {pipe.stage_watch.n} {json.dumps(dict(pipe.stage_watch.sites))}")
+    vi_check = vi_card_checks(dev, vi_buf, vi_kf, lm_cap)
+    print("visual-inertial checks:", json.dumps(vi_check))
+
+    # -- path 3, mapper search: triangulate + fuse on rendered keyframes -----
     _zero(cuda_lib.launches)
     s0 = pipe.syncs.n
     t0 = time.perf_counter()
@@ -1077,7 +1408,28 @@ def main(argv=None) -> int:
     print(f"mapper bounds: accepted >= {MIN_ACCEPTED}, median 3D error <= "
           f"{MAX_MEDIAN_TRI_ERR_M} m, fused >= {MIN_FUSED}")
 
-    # -- path 3, window BA on the bench window -----------------------------
+    # -- path 4, fisheye mapper search: the TUM-VI camera ---------------------
+    fpipe = TorchPipe(dev, profile=FISHEYE_PROFILE)
+    fpipe.features(np.zeros((fpipe.cam.height, fpipe.cam.width), np.float32))
+    torch.cuda.synchronize()
+    _zero(cuda_lib.launches)
+    t0 = time.perf_counter()
+    with _Capture(pallas_kernels, "hamming_matrix_cuda") as fcap:
+        frec = mapper_search(fpipe)
+    torch.cuda.synchronize()
+    fish_launches = dict(cuda_lib.launches)
+    print(f"fisheye mapper search: {time.perf_counter() - t0:.2f} s host (3 renders included), "
+          f"{fpipe.syncs.n} host syncs, launches {json.dumps(fish_launches)}")
+    print(f"fisheye mapper bounds: accepted >= {MIN_ACCEPTED_FISHEYE}, median 3D error <= "
+          f"{MAX_MEDIAN_TRI_ERR_FISHEYE_M} m, fused >= {MIN_FUSED_FISHEYE}")
+    for label, a in zip(("fisheye triangulate", "fisheye fuse"), fcap.calls):
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError(f"K3 {label} disagrees with its plain version")
+    print(f"K3 on the fisheye search's {fcap.n} launches: bit-identical to the plain version")
+
+    # -- path 5, window BA on the bench window -----------------------------
     _zero(cuda_lib.launches)
     ba = window_ba(dev)
     torch.cuda.synchronize()
@@ -1092,7 +1444,7 @@ def main(argv=None) -> int:
               f"{_pct(r['solve_ms'], 75):.3f} ms); host syncs per solve: "
               f"{r['syncs_in_solve']} inside + {r['fetches_per_solve']} fetch")
 
-    # -- path 4, polish BA on the full polish's window -----------------------
+    # -- path 6, polish BA on the full polish's window -----------------------
     _zero(cuda_lib.launches)
     polish = polish_ba(dev)
     torch.cuda.synchronize()
@@ -1127,10 +1479,9 @@ def main(argv=None) -> int:
           f"call {floor_call:.5f} ms")
 
     # K1 on the EuRoC atlas of a rendered frame, K = 1024
-    from monoorbslam3_tpu_torch.models.camera import Pinhole
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    img = ImageWorld().render(0.5, Pinhole.create(**EUROC_CAM, device="cpu"), R_BC, T_BC,
+    img = ImageWorld().render(0.5, host_camera(pipe.profile), R_BC, T_BC,
                               rng=np.random.default_rng(5))
     atlas, ys, xs, _ = pipe.ext._detect(torch.as_tensor(img, device=dev))
     n0 = cuda_lib.launches["gather_patches"]
@@ -1185,6 +1536,7 @@ def main(argv=None) -> int:
                         source="monoorbslam3_tpu_torch/csrc/gather_patches.cu",
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:80",
                         launches=launches["gather_patches"],
+                        launches_vi_drive=vi_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -1224,6 +1576,15 @@ def main(argv=None) -> int:
                                          "parent_call_ms", "plain_ms") if k in row)
               + f", bound {row['bound_us']:.3f} us ({row['bound_by']}); {row['blocks']} blocks; valid rows "
               f"{int((a[6] > 0).sum())}, matched rows {int((ref[2] >= 0).sum())}")
+    vi_last = list(vcap.calls)
+    if len(vi_last) != len(K2_CALLS) or vcap.n != len(K2_CALLS) * n_vi:
+        raise RuntimeError(f"K2: {vcap.n} launches over {n_vi} inertial frames, expected "
+                           f"{len(K2_CALLS)} a frame")
+    for label, a in zip(K2_CALLS, vi_last):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 inertial drive {label}")
+    print("K2 on the eight launches of the inertial drive's last frame: bit-identical")
     for N, M in ((1024, 1024), (4096, 1024), (1024, 4096), (37, 1000)):
         args = [t.to(dev) for t in seeded_match_ties(N, M, np.random.default_rng(N + M))]
         got = match_pallas._match_rows_cuda(*args)
@@ -1241,6 +1602,7 @@ def main(argv=None) -> int:
                         source="monoorbslam3_tpu_torch/csrc/match_rows.cu",
                         replaces="monoorbslam3_tpu/ops/match_pallas.py:43",
                         launches=launches["match_rows"],
+                        launches_vi_drive=vi_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -1291,6 +1653,7 @@ def main(argv=None) -> int:
                         source="monoorbslam3_tpu_torch/csrc/hamming.cu",
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:28",
                         launches=map_launches["hamming"],
+                        launches_fisheye_search=fish_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -1451,10 +1814,31 @@ def main(argv=None) -> int:
     print("inliers per frame:", [r["n_inliers"] for r in records])
     print("coarse matches per frame:", [r["n_match"] for r in records])
 
+    vi_keys = ("dev_imu_ms", "dev_extract_ms", "dev_coarse_ms", "dev_whiten_ms", "dev_local_ms",
+               "host_coarse_ms", "host_local_ms", "host_frame_ms", "t_err_m", "r_err_deg",
+               "v_err_mps", "pred_t_err_m", "pred_r_err_deg", "n_inliers")
+    vi_summary = {}
+    for key in vi_keys:
+        xs_ = [r[key] for r in vi_records[1:]] or [r[key] for r in vi_records]
+        vi_summary[key] = dict(p50=_pct(xs_, 50), p90=_pct(xs_, 90), p99=_pct(xs_, 99),
+                               max=max(xs_), min=min(xs_))
+    vi_summary["syncs_per_frame"] = (vi_syncs - 1) / n_vi
+    vi_summary["inertial_syncs"] = pipe.inertial_watch.n
+    vi_summary["stage_syncs"] = pipe.stage_watch.n
+    vi_summary["launches"] = {k: vi_launches[k] for k in ("gather_patches", "match_rows")}
+    print("visual-inertial drive (frames 2..%d):" % n_vi, json.dumps(vi_summary))
+    print(f"visual-inertial bounds: median t {MAX_VI_MEDIAN_T_ERR_M} m, R {MAX_VI_MEDIAN_R_ERR_DEG} "
+          f"deg; IMU-only prediction t {MAX_VI_MEDIAN_PRED_T_ERR_M} m, R "
+          f"{MAX_VI_MEDIAN_PRED_R_ERR_DEG} deg; inliers >= {MIN_INLIERS} every frame")
+    print("inertial inliers per frame:", [r["n_inliers"] for r in vi_records])
+
     failures = []
     for path, k, counts in (("tracking", "gather_patches", launches),
                             ("tracking", "match_rows", launches),
+                            ("visual-inertial tracking", "gather_patches", vi_launches),
+                            ("visual-inertial tracking", "match_rows", vi_launches),
                             ("mapper search", "hamming", map_launches),
+                            ("fisheye mapper search", "hamming", fish_launches),
                             ("window BA", "chol_solve", ba_launches),
                             ("polish BA", "chol_solve_l2", polish_launches)):
         if counts[k] == 0:
@@ -1498,6 +1882,33 @@ def main(argv=None) -> int:
     for r in records:
         if r["n_inliers"] < MIN_INLIERS:
             failures.append(f"frame {r['frame']}: {r['n_inliers']} inliers < {MIN_INLIERS}")
+    for r in vi_records:
+        if r["n_inliers"] < MIN_INLIERS:
+            failures.append(f"inertial frame {r['frame']}: {r['n_inliers']} inliers < {MIN_INLIERS}")
+    for key, lim in (("t_err_m", MAX_VI_MEDIAN_T_ERR_M), ("r_err_deg", MAX_VI_MEDIAN_R_ERR_DEG),
+                     ("pred_t_err_m", MAX_VI_MEDIAN_PRED_T_ERR_M),
+                     ("pred_r_err_deg", MAX_VI_MEDIAN_PRED_R_ERR_DEG)):
+        med = float(np.median([r[key] for r in vi_records]))
+        if not med <= lim:
+            failures.append(f"visual-inertial drive: median {key} {med} > {lim}")
+    if vi_summary["syncs_per_frame"] > MAX_VI_SYNCS_PER_FRAME:
+        failures.append(f"visual-inertial drive: {vi_summary['syncs_per_frame']} host syncs a frame")
+    if pipe.inertial_watch.n:
+        failures.append(f"inertial stage: {pipe.inertial_watch.n} host syncs "
+                        f"{dict(pipe.inertial_watch.sites)}")
+    if not vi_check["max_rel_vs_cpu"] <= VI_CARD_RTOL:
+        failures.append(f"inertial stage: the card's tree/whitening {vi_check['max_rel_vs_cpu']} "
+                        f"from the CPU's")
+    if not vi_check["polar_vs_svd_max_abs"] <= 1e-6:
+        failures.append(f"delta_rotation: polar step {vi_check['polar_vs_svd_max_abs']} from the SVD")
+    if not vi_check["lm_use_inertial"]:
+        failures.append("visual-inertial drive: the local stage's LM ran without its inertial tail")
+    if frec["n_accepted"] < MIN_ACCEPTED_FISHEYE:
+        failures.append(f"fisheye mapper: {frec['n_accepted']} points accepted < {MIN_ACCEPTED_FISHEYE}")
+    if not frec["median_tri_err_m"] <= MAX_MEDIAN_TRI_ERR_FISHEYE_M:
+        failures.append(f"fisheye mapper: median 3D error {frec['median_tri_err_m']} m")
+    if frec["n_fused"] < MIN_FUSED_FISHEYE:
+        failures.append(f"fisheye mapper: {frec['n_fused']} points fused < {MIN_FUSED_FISHEYE}")
     if np.median(t_errs) > MAX_MEDIAN_T_ERR_M:
         failures.append(f"median translation error {np.median(t_errs)} m")
     if np.median(r_errs) > MAX_MEDIAN_R_ERR_DEG:

@@ -1,21 +1,23 @@
-"""chip_smoke.py's mapper search and window BA through the JAX package, on
-the CPU.
+"""chip_smoke.py's mapper searches and window BA through the JAX package,
+on the CPU.
 
-Runs the same rendered EuRoC-size keyframes, triangulation, fuse and
-scoring as `chip_smoke.mapper_search`, but extracts and searches with
+Runs the same rendered keyframes, triangulation, fuse and scoring as
+`chip_smoke.mapper_search`, with the EuRoC camera and with the TUM-VI
+fisheye (`settings/tum_vi.yaml`), but extracts and searches with
 `monoorbslam3_tpu` (OrbExtractor, features_from_extractor,
 _triangulate_pair_kernel, _fuse_project_kernel); then runs `schur_ba` on
 `bench.build_problem(seed=0)` in each of chip_smoke's BA_VARIANTS. Its
 numbers set the bounds that chip_smoke.py holds the port to (PERF.md
 records the run).
 
-    python experiments/port_mapper_jax.py
+    python experiments/port_mapper_jax.py [--fisheye-only]
 
-Prints the mapper record and one line per BA variant.
+Prints one mapper record per camera and one line per BA variant.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -29,20 +31,21 @@ import numpy as np
 
 import bench
 import chip_smoke as cs
+from monoorbslam3_tpu import config
 from monoorbslam3_tpu.backend.solver import schur_ba
 from monoorbslam3_tpu.frontend.frame import features_from_extractor
 from monoorbslam3_tpu.frontend.local_mapping import (_fuse_project_kernel,
                                                      _triangulate_pair_kernel)
-from monoorbslam3_tpu.models.camera import Pinhole
 from monoorbslam3_tpu.ops.orb import OrbExtractor
 
 
 class JaxMapperPipe:
     """chip_smoke's mapper-search pipe interface over the JAX package."""
 
-    def __init__(self):
-        self.cam = Pinhole.create(**cs.EUROC_CAM)
-        self.ext = OrbExtractor(cs.EUROC_CAM["height"], cs.EUROC_CAM["width"],
+    def __init__(self, profile=cs.EUROC_PROFILE):
+        self.profile = profile
+        self.cam = config.build_camera(config.load_settings(str(cs.SETTINGS / profile)))
+        self.ext = OrbExtractor(self.cam.height, self.cam.width,
                                 n_features=cs.N_FEAT, n_levels=cs.N_LEVELS, scale=cs.SCALE)
         self.kfs = []
         self.mapper_times = {}
@@ -72,7 +75,15 @@ class JaxMapperPipe:
 
 
 def main():
-    cs.mapper_search(JaxMapperPipe())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--fisheye-only", action="store_true",
+                    help="only the TUM-VI fisheye search")
+    args = ap.parse_args()
+    if not args.fisheye_only:
+        cs.mapper_search(JaxMapperPipe())
+    cs.mapper_search(JaxMapperPipe(cs.FISHEYE_PROFILE))
+    if args.fisheye_only:
+        return
     problem, cam = bench.build_problem(seed=0)
     for name, kw in cs.BA_VARIANTS.items():
         _, pts, info = schur_ba(problem, cam, jnp.eye(3), jnp.zeros(3),

@@ -5,11 +5,14 @@ The JAX package stays the reference; this package mirrors its layout
 module's counterpart is found under the same name. It imports torch and
 never jax.
 
-Two slices are ported. The per-frame visual tracking path: ORB extraction
--> `finish_features` -> the coarse and local tracking stages (projection,
-gated Hamming match, visual pose LM). The mapper's keyframe path: the
-triangulation and fuse searches (`frontend/local_mapping.py`) and the
-window bundle adjustment `backend/solver.schur_ba`.
+Three slices are ported. The per-frame visual tracking path: ORB
+extraction -> `finish_features` -> the coarse and local tracking stages
+(projection, gated Hamming match, visual pose LM). The visual-inertial
+tracking step: IMU preintegration (`models/imu.py`), the whitened inertial
+edge and the 15-dim pose LM, with the fisheye camera, the settings loader
+(`config.py`) and the SE(3)/quaternion helpers. The mapper's keyframe
+path: the triangulation and fuse searches (`frontend/local_mapping.py`)
+and the window bundle adjustment `backend/solver.schur_ba`.
 
 Four functions run hand kernels on a CUDA tensor (`csrc/`): the atlas
 patch gather (`ops/pallas_kernels.gather_patches_dyn`), the gated top-2

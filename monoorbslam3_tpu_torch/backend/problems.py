@@ -1,13 +1,15 @@
-"""Frame pose optimization, visual branch (counterpart of
-`_pose_optimize_impl` and `_identity_edge` in
+"""Frame pose optimization (counterpart of `_pose_optimize_impl`,
+`_identity_edge` and `Problems._whiten_batch` in
 `monoorbslam3_tpu/backend/problems.py`).
 
 The reference's 4x10 frame LM (Optimize.cpp:444-545) as the JAX package
 runs it: a deferred-accept, parallel-lambda LM whose carry holds the
 incumbent plus the previous step's trial states at 4 dampings, with
-per-round chi2 inlier re-classification. Every step stays on the device:
-the winner is picked by a tensor index, the damping update is a
-`torch.where`, and nothing is read back to the host.
+per-round chi2 inlier re-classification; visual only (6 dims), or with an
+inertial edge to the last keyframe and/or a prior on (v, bg, ba) (15
+dims). Every step stays on the device: the winner is picked by a tensor
+index, the damping update is a `torch.where`, constants are made by fills,
+and nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ..utils import lie
 from . import residuals as res
 from . import solver
 from .residuals import KfState, PreintEdge
-from .solver import _take
+from .solver import _take, inertial_blocks
 
 CHI2_MONO = 5.991
 # frame-level association gate (see the JAX module for why it is looser
@@ -36,18 +38,21 @@ def _pose_optimize_impl(
     n_rounds: int = 2, n_iters: int = 10,
     use_inertial: bool = False, use_prior: bool = False,
 ):
-    """Visual frame LM with per-round chi2 inlier re-classification.
+    """Frame LM with per-round chi2 inlier re-classification: visual, plus
+    the whitened inertial residual to `last_state` through `edge` (scaled
+    by `edge_valid`) with `use_inertial`, plus the prior
+    ((v, bg, ba) - prior_ref's) * prior_inv_sigma [9] with `use_prior`.
 
-    Returns (state, inlier [N] bool). Only the visual branch is ported:
-    `use_inertial` or `use_prior` raises NotImplementedError (the inertial
-    tail comes with the IMU slice)."""
-    if use_inertial or use_prior:
-        raise NotImplementedError(
-            "_pose_optimize_impl: only the visual branch is ported "
-            "(use_inertial=False, use_prior=False)")
-    del edge, last_state, edge_valid, prior_ref, prior_inv_sigma
+    Returns (state, inlier [N] bool)."""
+    visual_only = not (use_inertial or use_prior)
     dev = pts.device
-    lam_factors = torch.tensor(LAMBDA_FACTORS, dtype=torch.float32, device=dev)
+    # the damping factors, made on the device by a fill and selects (a
+    # copy of host values would wait for the device's queue)
+    k = torch.arange(len(LAMBDA_FACTORS), device=dev)
+    lam_factors = torch.full((len(LAMBDA_FACTORS),), LAMBDA_FACTORS[-1],
+                             dtype=torch.float32, device=dev)
+    for j, f in enumerate(LAMBDA_FACTORS[:-1]):
+        lam_factors = torch.where(k == j, f, lam_factors)
     C = 1 + lam_factors.shape[0]
 
     def chi2_of(s):
@@ -77,14 +82,22 @@ def _pose_optimize_impl(
     def run_round(state, inlier, lm_steps):
         w_vis = inlier.to(torch.float32) * inv_sigma2
         cands = state.map(lambda a: a[None].expand(C, *a.shape))
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
         for _ in range(lm_steps):
             r, Jc, w, cost = vis_linearize_b(cands, w_vis)
+            if not visual_only:
+                r_t, J_t = _tail_linearize(cands, edge, last_state, edge_valid, prior_ref,
+                                           prior_inv_sigma, use_inertial, use_prior)
+                cost = cost + torch.sum(r_t * r_t, dim=-1)
             i = torch.argmin(cost)  # incumbent is candidate 0: monotone
             s = cands.map(lambda a: _take(a, i))
             JcW = Jc * w[:, :, None, None]
             H = _take(torch.einsum("cnik,cnil->ckl", JcW, Jc), i)  # [6, 6]
             g = _take(torch.einsum("cnik,cni->ck", JcW, r), i)
+            if not visual_only:
+                Jt_i, rt_i = _take(J_t, i), _take(r_t, i)
+                H = torch.nn.functional.pad(H, (0, 9, 0, 9)) + Jt_i.T @ Jt_i
+                g = torch.nn.functional.pad(g, (0, 9)) + Jt_i.T @ rt_i
             lam = torch.where(
                 i == 0, torch.clamp(lam * 100.0, max=1e5),
                 torch.clamp(lam * _take(lam_factors, torch.clamp(i - 1, min=0)) * 0.5,
@@ -93,11 +106,14 @@ def _pose_optimize_impl(
             lams = lam * lam_factors
             Hs = H[None] + lams[:, None, None] * D[None]
             # closed-form nested-Schur SPD solve on the Jacobi-scaled system
-            d6 = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(Hs, dim1=-2, dim2=-1)),
-                                        min=1e-12))
-            Hn = Hs / (d6[..., :, None] * d6[..., None, :])
-            steps = -(solver.inv_spd6(Hn) @ (g / d6)[..., None]).squeeze(-1) / d6
-            steps15 = torch.nn.functional.pad(steps, (0, 9))
+            if visual_only:
+                d6 = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(Hs, dim1=-2, dim2=-1)),
+                                            min=1e-12))
+                Hn = Hs / (d6[..., :, None] * d6[..., None, :])
+                steps = -(solver.inv_spd6(Hn) @ (g / d6)[..., None]).squeeze(-1) / d6
+                steps15 = torch.nn.functional.pad(steps, (0, 9))
+            else:
+                steps15 = -solver.solve_spd15_jacobi(Hs, g.expand(lams.shape[0], 15))
             trials = res.retract_kf(s.map(lambda a: a[None].expand(steps15.shape[0], *a.shape)),
                                     steps15)
             cands = KfState(*(torch.cat([a[None], b]) for a, b in zip(s, trials)))
@@ -118,6 +134,32 @@ def _pose_optimize_impl(
     return state, inlier
 
 
+def _tail_linearize(s: KfState, edge: PreintEdge, last_state: KfState, edge_valid,
+                    prior_ref: KfState, prior_inv_sigma, use_inertial: bool,
+                    use_prior: bool):
+    """The frame LM's inertial-to-last-KF and prior residuals [C, R] and
+    their Jacobians [C, R, 15] with respect to a fresh tangent at each of
+    the C states `s` (R <= 18). The JAX package takes the Jacobian with
+    jacfwd; here it is the closed form: the inertial edge's J2 block
+    (`solver.inertial_blocks` with s1 = last_state) and
+    diag(prior_inv_sigma) on dims 6:15."""
+    n = s.R_wb.shape[0]
+    rs, Js = [], []
+    if use_inertial:
+        s1 = last_state.map(lambda a: a[None].expand(n, *a.shape))
+        e = PreintEdge(*(a[None].expand(n, *a.shape) for a in edge))
+        r, J = inertial_blocks(s1, s, e, with_J1=False)
+        rs.append(r * edge_valid)
+        Js.append(J * edge_valid)
+    if use_prior:
+        x = torch.cat([s.v, s.bg, s.ba], dim=-1)
+        x0 = torch.cat([prior_ref.v, prior_ref.bg, prior_ref.ba])
+        rs.append((x - x0) * prior_inv_sigma)
+        Js.append(torch.nn.functional.pad(torch.diag(prior_inv_sigma), (6, 0))
+                  .expand(n, 9, 15))
+    return torch.cat(rs, dim=-1), torch.cat(Js, dim=-2)
+
+
 def _identity_edge(device) -> PreintEdge:
     f32 = dict(dtype=torch.float32, device=device)
     z3 = torch.zeros(3, **f32)
@@ -125,6 +167,13 @@ def _identity_edge(device) -> PreintEdge:
     return PreintEdge(
         dR=torch.eye(3, **f32), dV=z3, dP=z3.clone(),
         JRg=z33, JVg=z33.clone(), JVa=z33.clone(), JPg=z33.clone(), JPa=z33.clone(),
-        bg0=z3.clone(), ba0=z3.clone(), dt=torch.tensor(1.0, **f32),
+        bg0=z3.clone(), ba0=z3.clone(), dt=torch.ones((), **f32),
         L_inv=torch.eye(9, **f32),
     )
+
+
+def whiten(pre) -> PreintEdge:
+    """A preintegrated window -> its whitened inertial edge (the JAX
+    package's `Problems._whiten_batch`, a jit of
+    `PreintEdge.from_preintegrated`)."""
+    return PreintEdge.from_preintegrated(pre)

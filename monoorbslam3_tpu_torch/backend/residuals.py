@@ -5,7 +5,8 @@ the bias random walk and the diagonal prior.
 State conventions (CameraImuPose, G2oTypes.cpp:10-25): body state R_wb,
 t_wb, v, bg, ba; camera pose R_cw = R_cb R_wb^T, t_cw = t_cb - R_cw t_wb;
 right-multiplicative 15-dim tangent [dphi, dt, dv, dbg, dba].
-`PreintEdge.from_preintegrated` joins with the IMU preintegration slice.
+`PreintEdge.from_preintegrated` turns a preintegrated window into a
+whitened inertial edge.
 """
 
 from __future__ import annotations
@@ -96,6 +97,53 @@ class PreintEdge(NamedTuple):
     ba0: torch.Tensor
     dt: torch.Tensor  # [...]
     L_inv: torch.Tensor  # [..., 9, 9] inverse Cholesky factor (whitener)
+
+    # Integration-noise floor (per-edge sigmas kr*dt [rad], kv*dt [m/s],
+    # kp*dt^2 [m]) on top of the propagated sensor covariance: rectangular
+    # integration of a rotating specific force leaves a discretization
+    # error the sensor model lacks (the JAX module says what it cost
+    # without it). The floor scales with the edge's own rotation rate,
+    # clamped to [INT_NOISE_MIN_FRAC, 1] of the value at INT_NOISE_W_REF.
+    INT_NOISE_R = 5e-4   # rad/s of edge duration
+    INT_NOISE_V = 8e-3   # (m/s)/s of edge duration
+    INT_NOISE_P = 6e-3   # m/s^2 -> sigma_p = kp * dt^2
+    INT_NOISE_W_REF = 0.5   # rad/s at which the calibrated floor applies
+    INT_NOISE_MIN_FRAC = 0.25
+
+    @staticmethod
+    def from_preintegrated(pre, eps: float = 1e-12) -> "PreintEdge":
+        """A whitening edge from a models.imu.Preintegrated (single or
+        batched). The Cholesky of the scale-normalized covariance is
+        `cholesky_ex`, which reads no status back to the host; a factor
+        that failed (C not positive definite) becomes NaN, as JAX's
+        Cholesky gives it, and so does L_inv."""
+        C9 = pre.C[..., :9, :9]
+        C9 = 0.5 * (C9 + C9.transpose(-1, -2))
+        dt = pre.dt[..., None]
+        # per-edge rotation rate from the preintegrated dR (trace formula)
+        tr = pre.dR[..., 0, 0] + pre.dR[..., 1, 1] + pre.dR[..., 2, 2]
+        cos_th = torch.clamp(0.5 * (tr - 1.0), -1.0 + 1e-6, 1.0 - 1e-6)
+        theta = torch.arccos(cos_th)
+        rate = theta / torch.clamp(pre.dt, min=1e-3)
+        frac = torch.clamp(rate / PreintEdge.INT_NOISE_W_REF,
+                           PreintEdge.INT_NOISE_MIN_FRAC, 1.0)[..., None]
+        shape3 = dt.shape[:-1] + (3,)
+        floor = frac ** 2 * torch.cat([
+            ((PreintEdge.INT_NOISE_R * dt) ** 2).expand(shape3),
+            ((PreintEdge.INT_NOISE_V * dt) ** 2).expand(shape3),
+            ((PreintEdge.INT_NOISE_P * dt * dt) ** 2).expand(shape3),
+        ], dim=-1)
+        eye9 = torch.eye(9, dtype=torch.float32, device=C9.device)
+        C9 = C9 + floor[..., None] * eye9
+        # scale-normalized Cholesky for f32 robustness
+        s = torch.clamp(torch.diagonal(C9, dim1=-2, dim2=-1).sum(-1) / 9.0, min=eps)
+        Cn = C9 / s[..., None, None] + 1e-8 * eye9
+        L, info = torch.linalg.cholesky_ex(Cn)
+        L = torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
+        L_inv = torch.linalg.solve_triangular(L, eye9.expand(L.shape), upper=False) \
+            / torch.sqrt(s)[..., None, None]
+        return PreintEdge(pre.dR, pre.dV, pre.dP, pre.JRg, pre.JVg, pre.JVa, pre.JPg,
+                          pre.JPa, pre.bg, pre.ba, pre.dt, L_inv)
 
     def corrected(self, bg: torch.Tensor, ba: torch.Tensor):
         """First-order bias-corrected deltas (Imu.cpp:182-204)."""

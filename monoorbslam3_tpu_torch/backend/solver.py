@@ -120,6 +120,14 @@ def inv_spd15(M: torch.Tensor) -> torch.Tensor:
     return _inv_spd_block(M, 6, inv_spd6, inv_spd9)
 
 
+def solve_spd15_jacobi(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x = H^-1 g for batched damped-SPD 15x15 systems, with Jacobi
+    pre/post-scaling for f32 robustness."""
+    d = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), min=1e-12))
+    Hn = H / (d[..., :, None] * d[..., None, :])
+    return (inv_spd15(Hn) @ (g / d)[..., None]).squeeze(-1) / d
+
+
 # ---------------------------------------------------------------------------
 # residuals and linearizations
 # ---------------------------------------------------------------------------
@@ -184,8 +192,18 @@ def _inertial_linearize(problem: BAProblem):
     (r [E, 9], J1 [E, 9, 15], J2 [E, 9, 15], w [E], cost)."""
     s1 = _gather_kf(problem.kf, problem.ie_i)
     s2 = _gather_kf(problem.kf, problem.ie_j)
-    e = problem.ie_edge
-    E = problem.ie_i.shape[0]
+    r0, J1, J2 = inertial_blocks(s1, s2, problem.ie_edge)
+    w = problem.ie_valid.to(torch.float32)
+    cost = torch.sum(w * torch.sum(r0 * r0, dim=-1))
+    return r0, J1, J2, w, cost
+
+
+def inertial_blocks(s1: KfState, s2: KfState, e: PreintEdge, with_J1: bool = True):
+    """The whitened residual r [E, 9] and its Jacobians J1, J2 [E, 9, 15]
+    with respect to s1's and s2's tangents, for states and edges batched
+    over one leading axis E. Without `with_J1` only (r, J2) come back: the
+    frame LM's inertial tail, whose s1 (the last keyframe) is fixed."""
+    E = s1.R_wb.shape[0]
     dev = s1.v.device
     g = res.gravity(dev)
     mv = lambda M, x: torch.einsum("...ij,...j->...i", M, x)
@@ -209,38 +227,38 @@ def _inertial_linearize(problem: BAProblem):
     Ag, Bg, Cg = lie.exp_jr_coeffs(jrg_dbg)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev).expand(E, 3, 3)
     expg = eye3 + Ag[..., None, None] * Wg + Bg[..., None, None] * W2g
-    Jrg = eye3 - Bg[..., None, None] * Wg + Cg[..., None, None] * W2g
     eR = expg.transpose(-1, -2) @ dRtM
-    P = Jrg @ e.JRg
     er = lie.log_so3(eR)
     ev = ev_arg - dV
     ep = ep_arg - dP
     We = lie.hat(er)
-    Q = eR.transpose(-1, -2) @ P
     De = lie.inv_jr_coeff(er)
     invJr = eye3 + 0.5 * We + De[..., None, None] * (We @ We)
-    der_dbg = -invJr @ Q
-    mijR21 = -invJr @ M.transpose(-1, -2)
 
     Z3 = torch.zeros((E, 3, 3), dtype=torch.float32, device=dev)
-    J1 = torch.cat([
-        torch.cat([mijR21, Z3, Z3, der_dbg, Z3], -1),
-        torch.cat([lie.hat(ev_arg), Z3, -Rb1w, -e.JVg, -e.JVa], -1),
-        torch.cat([lie.hat(ep_arg), -eye3, -Rb1w * dt[..., None], -e.JPg, -e.JPa], -1),
-    ], -2)
     J2 = torch.cat([
         torch.cat([invJr, Z3, Z3, Z3, Z3], -1),
         torch.cat([Z3, Z3, Rb1w, Z3, Z3], -1),
         torch.cat([Z3, M, Z3, Z3, Z3], -1),
     ], -2)
-    # whiten the residual and both Jacobians in one product: [E,9,9]@[E,9,31]
     r9 = torch.cat([er, ev, ep], -1)
-    Wt = e.L_inv @ torch.cat([r9[..., None], J1, J2], -1)
-    r0, J1, J2 = Wt[..., 0], Wt[..., 1:16], Wt[..., 16:31]
+    if not with_J1:
+        Wt = e.L_inv @ torch.cat([r9[..., None], J2], -1)
+        return Wt[..., 0], Wt[..., 1:16]
 
-    w = problem.ie_valid.to(torch.float32)
-    cost = torch.sum(w * torch.sum(r0 * r0, dim=-1))
-    return r0, J1, J2, w, cost
+    Jrg = eye3 - Bg[..., None, None] * Wg + Cg[..., None, None] * W2g
+    P = Jrg @ e.JRg
+    Q = eR.transpose(-1, -2) @ P
+    der_dbg = -invJr @ Q
+    mijR21 = -invJr @ M.transpose(-1, -2)
+    J1 = torch.cat([
+        torch.cat([mijR21, Z3, Z3, der_dbg, Z3], -1),
+        torch.cat([lie.hat(ev_arg), Z3, -Rb1w, -e.JVg, -e.JVa], -1),
+        torch.cat([lie.hat(ep_arg), -eye3, -Rb1w * dt[..., None], -e.JPg, -e.JPa], -1),
+    ], -2)
+    # whiten the residual and both Jacobians in one product: [E,9,9]@[E,9,31]
+    Wt = e.L_inv @ torch.cat([r9[..., None], J1, J2], -1)
+    return Wt[..., 0], Wt[..., 1:16], Wt[..., 16:31]
 
 
 def _walk_linearize(problem: BAProblem):

@@ -39,7 +39,9 @@ def tensor(x, device=CARD) -> torch.Tensor:
         return desc_to_torch(a, device)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(resolve(device))
+    # np.array, not np.ascontiguousarray: the latter turns a 0-d array (a
+    # record's scalar field, such as a PreintEdge's dt) into shape (1,)
+    return torch.from_numpy(np.array(a, order="C")).to(resolve(device))
 
 
 def pinhole(cam, device=CARD) -> Pinhole:
@@ -47,9 +49,9 @@ def pinhole(cam, device=CARD) -> Pinhole:
     min_y, max_x, max_y) -> the port's camera, bounds taken as given."""
     device = resolve(device)
     f = lambda v: torch.tensor(float(np.asarray(v)), dtype=torch.float32, device=device)
-    dist = np.zeros(5, np.float32)
+    # the whole vector, padded to five terms (Pinhole.create's rule)
     d = np.asarray(cam.dist, np.float32).reshape(-1)
-    dist[: d.shape[0]] = d
+    dist = np.concatenate([d, np.zeros(max(0, 5 - d.shape[0]), np.float32)])
     return Pinhole(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy),
                    torch.as_tensor(dist, device=device), int(cam.width), int(cam.height),
                    min_x=f(cam.min_x), min_y=f(cam.min_y),

@@ -2,9 +2,9 @@
 `monoorbslam3_tpu/frontend/frame.py`).
 
 `finish_features` undistorts the extractor's keypoints and attaches the
-per-level measurement variance, on the device, with no host read. The
-IMU buffers of the JAX Frame (`pre_from_frame`, `pre_from_kf`) join with the
-preintegration slice of the port.
+per-level measurement variance, on the device, with no host read. A
+frame carries its two preintegrated windows (since the last frame and
+since the last keyframe) and the bias-corrected deltas of the second.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from ..backend.residuals import KfState
+from ..models.imu import Preintegrated
 
 
 @dataclass
@@ -32,6 +33,11 @@ class Frame:
     state: KfState | None = None
     # map point id per feature (-1 = none)
     pt_ids: torch.Tensor | None = None
+    # preintegration from the previous frame / keyframe
+    pre_from_frame: Preintegrated | None = None
+    pre_from_kf: Preintegrated | None = None
+    # bias-corrected (dR, dV, dP) of pre_from_kf, for the IMU prediction
+    _pred_deltas: tuple | None = None
     ref_kf: int = -1
     n_tracked: int = 0
 

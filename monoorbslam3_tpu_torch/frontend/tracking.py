@@ -1,4 +1,6 @@
-"""The two fused tracking stages (counterpart of `_project_points`,
+"""The two fused tracking stages and the IMU prediction (counterpart of
+`_predict_deltas`, the inertial branch of `Tracking._predict_state`,
+`_project_points`,
 `_scatter_by_feature`, `_coarse_track_kernel` and `_local_track_kernel` in
 `monoorbslam3_tpu/frontend/tracking.py`).
 
@@ -6,9 +8,10 @@ Each stage is one chain of device work with no host read inside: project
 the candidates, run the gated match (K2) at the tight radius AND at the
 wide radius, pick one of the two on the device with `torch.where` (the
 reference's wide retry, Tracking.cpp:284-314), assemble the per-feature
-problem and run the visual pose LM. The caller reads the stage's result
-with one `utils.fetch.fetch`. The `Tracking` state machine joins with the
-init slice of the port.
+problem and run the pose LM (visual, or with the inertial edge to the last
+keyframe in the local stage). The caller reads the stage's result with one
+`utils.fetch.fetch`. The `Tracking` state machine joins with a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -16,9 +19,29 @@ from __future__ import annotations
 import torch
 
 from ..backend.problems import _identity_edge, _pose_optimize_impl
-from ..backend.residuals import KfState
+from ..backend.residuals import KfState, gravity
 from ..ops import matching
 from ..ops.match_pallas import projected_match
+
+
+def _predict_deltas(pre, bg, ba):
+    """Bias-corrected (dR, dV, dP) of a preintegrated window at (bg, ba),
+    on the window's device with no host read: the caller brings them home
+    with the stage's one fetch."""
+    return (pre.delta_rotation(bg), pre.delta_velocity(bg, ba),
+            pre.delta_position(bg, ba))
+
+
+def _predict_state_inertial(kf, dR, dV, dP, dt):
+    """The frame's state predicted from its keyframe's through the IMU (the
+    inertial branch of `Tracking._predict_state`), on the keyframe state's
+    device with no host read: R = R0 dR, v = v0 + g dt + R0 dV,
+    t = t0 + v0 dt + g dt^2 / 2 + R0 dP; the biases are the keyframe's."""
+    g = gravity(dR.device)
+    R = kf.R_wb @ dR
+    v = kf.v + g * dt + kf.R_wb @ dV
+    t = kf.t_wb + kf.v * dt + 0.5 * g * dt * dt + kf.R_wb @ dP
+    return KfState(R, t, v, kf.bg, kf.ba)
 
 
 def _project_points(R_wb, t_wb, R_cb, t_cb, xyz, camera):
@@ -100,8 +123,9 @@ def _local_track_kernel(state0, cand_xyz, cand_desc, cand_valid, cand_normal,
     """The local-map tracking stage: project, view-cos gate, two-radius match
     (the 2.5x wide pass selected on the device when the tight pass
     re-captures under half the in-view candidates), merge with the coarse
-    associations, visual pose LM. `use_inertial=True` belongs to the IMU
-    slice and raises NotImplementedError in the pose LM.
+    associations, pose LM: visual, or with `use_inertial` the 15-dim LM
+    with the whitened edge `edge` from `last_state` (the last keyframe's
+    state) to the frame, scaled by `edge_valid`.
 
     blockrow[f] = candidate row of the point the coarse stage assigned to
     feature f (-1 none): the coarse association survives unless the local

@@ -48,6 +48,30 @@ def fast_score_raw(img: torch.Tensor) -> torch.Tensor:
     return torch.maximum(_arc_min_max(diffs), _arc_min_max(-diffs))
 
 
+def subpixel_peak_offsets(score: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                          valid: torch.Tensor):
+    """Separable quadratic peak interpolation at integer keypoints: a
+    parabola through (prev, center, next) of the RAW score per axis peaks
+    at 0.5 (prev - next) / (prev + next - 2 center), in (-0.5, 0.5) for a
+    strict local maximum (the curvature guard trips only on flat plateaus).
+    Returns (offx [N], offy [N]) float32, zero for invalid slots."""
+    ys, xs = ys.long(), xs.long()
+    C = score[ys, xs]
+    L = score[ys, xs - 1]
+    R = score[ys, xs + 1]
+    U = score[ys - 1, xs]
+    D = score[ys + 1, xs]
+
+    def axis_offset(prev, nxt):
+        den = prev + nxt - 2.0 * C
+        curved = den < -1e-6
+        off = 0.5 * (prev - nxt) / torch.where(curved, den, torch.full_like(den, -1.0))
+        return torch.where(curved, torch.clamp(off, -0.5, 0.5), torch.zeros_like(off))
+
+    m = valid.to(torch.float32)
+    return axis_offset(L, R) * m, axis_offset(U, D) * m
+
+
 def nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 non-maximum suppression (-inf padding, like reduce_window SAME)."""
     local_max = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]

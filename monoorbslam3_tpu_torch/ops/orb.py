@@ -27,6 +27,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import fast as fast_ops
 from . import image as image_ops
@@ -144,23 +145,27 @@ class OrbExtractor:
     `__call__` runs pyramid -> FAST -> grid-NMS select -> atlas gather ->
     IC angle -> rBRIEF and returns fixed-capacity tensors on the device:
     xy [N, 2] (level-0 raw pixels), response [N], level [N] i32, angle [N],
-    desc [N, 8] i32, valid [N] bool.
+    desc [N, 8] i32, valid [N] bool. With `subpixel` (off by default, as in
+    the JAX package) the keypoints are refined by a parabola through the
+    raw FAST score (`fast.subpixel_peak_offsets`) on a packed score atlas.
     """
 
     def __init__(self, height: int, width: int, n_features: int = 1024,
                  n_levels: int = 8, scale: float = 1.2, ini_th_fast: float = 20.0,
                  min_th_fast: float = 7.0, cell: int = 16, per_cell: int = 4,
-                 device=CARD):
+                 subpixel: bool = False, device=CARD):
         self.height, self.width = height, width
         self.n_features = n_features
         self.n_levels = n_levels
         self.scale = scale
         self.ini_th, self.min_th = ini_th_fast, min_th_fast
         self.cell, self.per_cell = cell, per_cell
+        self.subpixel = subpixel
         self.device = resolve(device)
         self.quotas = level_quotas(n_features, n_levels, scale)
         self.scale_factors = np.array([scale**l for l in range(n_levels)], np.float32)
         self.sigma2 = self.scale_factors**2
+        self._sf = torch.as_tensor(self.scale_factors, device=self.device)
         # pyramid-atlas layout of the JAX package: levels stacked vertically,
         # each padded to a 128-aligned width plus 256 columns; 64 slack rows
         shapes = image_ops.pyramid_shapes(height, width, n_levels, scale)
@@ -178,6 +183,7 @@ class OrbExtractor:
         dev = img.device
         atlas = torch.zeros((self.atlas_h, self.atlas_w), dtype=torch.float32, device=dev)
         ys_at, xs, out_xy, out_resp, out_level, out_valid = [], [], [], [], [], []
+        raw_rows, kx_at, ky_at = [], [], []  # the score atlas of `subpixel`
         for lvl, li in enumerate(levels):
             h, w = li.shape
             off = int(self._row_off[lvl])
@@ -195,16 +201,28 @@ class OrbExtractor:
             # atlas (their descriptors are masked out downstream)
             xs.append(torch.clamp(xi - HALF, min=0))
             ys_at.append(torch.clamp(yi - HALF, min=0) + off)
+            if self.subpixel:  # keypoint-centred atlas coordinates
+                kx_at.append(xi)
+                ky_at.append(yi + off)
+                raw_rows.append(F.pad(raw, (0, self.atlas_w - w)))
             out_xy.append(xy * float(self.scale_factors[lvl]))  # level-0 pixels
             out_resp.append(resp)
             out_level.append(torch.full((quota,), lvl, dtype=torch.int32, device=dev))
             out_valid.append(valid)
 
+        level_all, valid_all = torch.cat(out_level), torch.cat(out_valid)
+        xy_all = torch.cat(out_xy)
+        if self.subpixel:
+            # one cross-level parabola pass on the packed raw-score atlas
+            offx, offy = fast_ops.subpixel_peak_offsets(
+                torch.cat(raw_rows), torch.cat(ky_at), torch.cat(kx_at), valid_all)
+            sf = self._sf[level_all.long()]
+            xy_all = xy_all + torch.stack([offx, offy], -1) * sf[:, None]
         return atlas, torch.cat(ys_at), torch.cat(xs), {
-            "xy": torch.cat(out_xy),
+            "xy": xy_all,
             "response": torch.cat(out_resp),
-            "level": torch.cat(out_level),
-            "valid": torch.cat(out_valid),
+            "level": level_all,
+            "valid": valid_all,
         }
 
     def _extract(self, img: torch.Tensor) -> dict:

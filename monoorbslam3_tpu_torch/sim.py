@@ -1,6 +1,10 @@
 """Deterministic synthetic world (counterpart of `Trajectory` and
 `ImageWorld` in `monoorbslam3_tpu/sim.py`), numpy only.
 
+`Trajectory` is analytic: pose, velocity, acceleration and body rate in
+closed form, and IMU samples drawn from them (bit-identical to the JAX
+package's on the same seed).
+
 `ImageWorld` ray-casts a procedurally textured cylinder wall with pillars
 into grayscale images. The ray/scene intersection lives in `intersect`, so
 a caller can also lift a keypoint to the true world point it sees
@@ -13,6 +17,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .models.imu import GRAVITY_VALUE
+
+G_W = np.array([0.0, 0.0, -GRAVITY_VALUE])
 
 
 @dataclass
@@ -33,6 +41,19 @@ class Trajectory:
                          self.radius * np.sin(self.omega * t),
                          self.height_amp * np.sin(self.omega_z * t)], axis=-1)
 
+    def vel(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([-self.radius * self.omega * np.sin(self.omega * t),
+                         self.radius * self.omega * np.cos(self.omega * t),
+                         self.height_amp * self.omega_z * np.cos(self.omega_z * t)], axis=-1)
+
+    def acc(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([-self.radius * self.omega**2 * np.cos(self.omega * t),
+                         -self.radius * self.omega**2 * np.sin(self.omega * t),
+                         -self.height_amp * self.omega_z**2 * np.sin(self.omega_z * t)],
+                        axis=-1)
+
     def yaw(self, t):
         return self.omega * np.asarray(t, np.float64) + np.pi / 2.0
 
@@ -43,6 +64,35 @@ class Trajectory:
         return np.stack([np.stack([c, -s, zero], axis=-1),
                          np.stack([s, c, zero], axis=-1),
                          np.stack([zero, zero, one], axis=-1)], axis=-2)
+
+    def omega_body(self, t):
+        """Body angular rate (yaw-only rotation: a constant z rate)."""
+        t = np.asarray(t, np.float64)
+        out = np.zeros(t.shape + (3,))
+        out[..., 2] = self.omega
+        return out
+
+    def imu_samples(self, t0, t1, freq, bg=None, ba=None, noise_gyro=0.0,
+                    noise_acc=0.0, rng=None):
+        """IMU samples in [t0, t1) at `freq`: gyro/acc with optional bias and
+        white noise (densities, discretized at `freq`). Returns (gyro [N, 3],
+        acc [N, 3], dts [N]) float32, left-rectangular sampling (the
+        measurement at the interval start, Frame.cpp:73-88)."""
+        rng = rng or np.random.default_rng(0)
+        bg = np.zeros(3) if bg is None else np.asarray(bg)
+        ba = np.zeros(3) if ba is None else np.asarray(ba)
+        dt = 1.0 / freq
+        ts = np.arange(t0, t1 - 1e-9, dt)
+        gyro = self.omega_body(ts) + bg
+        a_w = self.acc(ts) - G_W  # specific force in the world frame
+        R = self.R_wb(ts)
+        acc = np.einsum("nij,nj->ni", np.swapaxes(R, -1, -2), a_w) + ba
+        if noise_gyro > 0:
+            gyro = gyro + rng.normal(scale=noise_gyro * np.sqrt(freq), size=gyro.shape)
+        if noise_acc > 0:
+            acc = acc + rng.normal(scale=noise_acc * np.sqrt(freq), size=acc.shape)
+        dts = np.full(len(ts), dt)
+        return gyro.astype(np.float32), acc.astype(np.float32), dts.astype(np.float32)
 
 
 @dataclass

@@ -20,9 +20,18 @@ class SyncCounter:
         self.n = 0
 
 
+def _rebuild(x, items):
+    """A tuple or list like `x` holding `items`: a named tuple (a record
+    such as KfState or Preintegrated) is rebuilt field by field."""
+    if hasattr(x, "_fields"):
+        return type(x)(*items)
+    return type(x)(items)
+
+
 def fetch(tree, counter: SyncCounter):
-    """Tensors (possibly nested in plain tuples, lists and dicts) -> numpy,
-    with a single stream synchronisation when any of them lies on the card."""
+    """Tensors (possibly nested in tuples, named tuples, lists and dicts) ->
+    numpy, with a single stream synchronisation when any of them lies on the
+    card."""
     on_card = []
 
     def start(x):
@@ -34,7 +43,7 @@ def fetch(tree, counter: SyncCounter):
         if isinstance(x, dict):
             return {k: start(v) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
-            return type(x)(start(v) for v in x)
+            return _rebuild(x, [start(v) for v in x])
         return x
 
     staged = start(tree)
@@ -48,7 +57,7 @@ def fetch(tree, counter: SyncCounter):
         if isinstance(x, dict):
             return {k: finish(v) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
-            return type(x)(finish(v) for v in x)
+            return _rebuild(x, [finish(v) for v in x])
         return x
 
     return finish(staged)

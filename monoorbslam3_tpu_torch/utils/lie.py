@@ -122,3 +122,51 @@ def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     flip = torch.ones_like(U)
     flip[..., :, 2] = torch.where(det < 0.0, -1.0, 1.0)[..., None]
     return (U * flip) @ Vt
+
+
+def polar_rotation(R: torch.Tensor, n_steps: int = 3) -> torch.Tensor:
+    """The orthogonal polar factor of a near-rotation by `n_steps` Newton-
+    Schulz steps R <- R (3I - R^T R) / 2, batched matmuls only.
+
+    For a rotation off SO(3) by rounding (|I - R^T R| ~ 1e-6) the error
+    squares every step, so three steps land where `normalize_rotation`'s
+    U V^T lands, to float32 rounding. Unlike the SVD, nothing here reads a
+    status back to the host, so it runs inside a stage with no host sync.
+    It is not a projection of arbitrary matrices: a reflection or a matrix
+    far from SO(3) needs `normalize_rotation`."""
+    eye3 = _eye_like(R)
+    for _ in range(n_steps):
+        R = R @ (1.5 * eye3 - 0.5 * (R.transpose(-1, -2) @ R))
+    return R
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> unit quaternion [..., 4] as (w, x, y, z), w >= 0:
+    all four Shepperd candidates, the best-conditioned one per element."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4, 4]
+    scores = torch.stack([tr, m00, m11, m22], dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) [..., 4] -> [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1)
+    r1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1)
+    r2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)

@@ -286,3 +286,107 @@ def test_chol_grid_route_not_spd_1000(cuda, kind):
     for g in (0, 2):
         ref = torch.linalg.solve(S[g].double(), b[g].double())
         assert float((x[g].double() - ref).norm() / ref.norm()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The inertial stage on the card (plain torch, no hand kernel): the same
+# functions on the CPU are its reference
+# ---------------------------------------------------------------------------
+
+
+def _imu_window(device, n_samples=50):
+    """A keyframe window of the circle trajectory (200 Hz, EuRoC noise
+    densities, a constant bias) and the EuRoC profile's calibration."""
+    from chip_smoke import BA_TRUE, BG_TRUE, EUROC_PROFILE, SETTINGS
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer
+    from monoorbslam3_tpu_torch.sim import Trajectory
+
+    g, a, d = Trajectory().imu_samples(0.0, n_samples / 200.0, 200.0, bg=BG_TRUE, ba=BA_TRUE,
+                                       noise_gyro=1.7e-4, noise_acc=2e-3,
+                                       rng=np.random.default_rng(n_samples))
+    buf = ImuBuffer()
+    for k in range(len(d)):
+        buf.add(g[k], a[k], d[k])
+    calib = config.build_imu_calib(config.load_settings(SETTINGS / EUROC_PROFILE), device=device)
+    bias = [torch.as_tensor(np.float32(b), device=device) for b in (BG_TRUE, BA_TRUE)]
+    return buf, calib, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_samples", [10, 50, 130])
+def test_inertial_stage_card_matches_cpu(cuda, n_samples):
+    """preintegrate_tree, whiten and the deltas on the card within 1e-5 of
+    the largest entry of each field of the same functions on the CPU (no
+    TF32 or other card-only arithmetic on the path)."""
+    from monoorbslam3_tpu_torch.backend.problems import whiten
+    from monoorbslam3_tpu_torch.frontend.tracking import _predict_deltas
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        buf, calib, (bg, ba) = _imu_window(dev, n_samples)
+        pre = buf.integrate(bg, ba, calib)
+        out[dev.type] = (pre, whiten(pre), _predict_deltas(pre, bg + 1e-3, ba - 1e-2))
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        for g, r in zip(got, ref):
+            g, r = g.double().cpu(), r.double()
+            assert float((g - r).abs().max()) <= 1e-5 * max(float(r.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_inertial_stage_makes_no_host_sync(cuda):
+    """The whole inertial stage (upload of a window, the tree, the deltas,
+    the whitening) under PyTorch's sync debug mode set to raise."""
+    from monoorbslam3_tpu_torch.backend.problems import whiten
+    from monoorbslam3_tpu_torch.frontend.tracking import _predict_deltas
+
+    buf, calib, (bg, ba) = _imu_window(cuda)
+    whiten(buf.integrate(bg, ba, calib))  # first launches outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pre = buf.integrate(bg, ba, calib)
+        _predict_deltas(pre, bg, ba)
+        whiten(pre)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_inertial_pose_lm_card_matches_cpu(cuda):
+    """The 15-dim pose LM with the inertial edge and the prior on the card
+    and on the CPU, on one seeded problem: final states within 1e-4."""
+    from monoorbslam3_tpu_torch.backend.problems import _pose_optimize_impl, whiten
+    from monoorbslam3_tpu_torch.backend.residuals import KfState
+    from monoorbslam3_tpu_torch.models.camera import Pinhole
+    from monoorbslam3_tpu_torch.sim import Trajectory
+
+    traj = Trajectory()
+    rng = np.random.default_rng(3)
+    R_cb = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]], np.float32)
+    t_cb = np.zeros(3, np.float32)
+    R1, p1 = traj.R_wb(0.25), traj.pos(0.25)
+    pc = np.stack([rng.uniform(-3, 3, 200), rng.uniform(-2, 2, 200), rng.uniform(2, 9, 200)], -1)
+    R_cw = R_cb @ R1.T
+    pts = ((pc - (t_cb - R_cw @ p1)) @ R_cw).astype(np.float32)
+    uv = np.stack([400 * pc[:, 0] / pc[:, 2] + 376, 400 * pc[:, 1] / pc[:, 2] + 240], -1)
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    f32 = lambda x: np.asarray(x, np.float32)
+    last = (f32(traj.R_wb(0.0)), f32(traj.pos(0.0)), f32(traj.vel(0.0)),
+            np.full(3, 0.004, np.float32), np.full(3, 0.03, np.float32))
+    state0 = (f32(R1), f32(p1 + 0.02), f32(traj.vel(0.25) + 0.1), last[3], last[4])
+    finals = []
+    for dev in (cuda, torch.device("cpu")):
+        buf, calib, _ = _imu_window(dev)
+        up = lambda x: torch.as_tensor(x, device=dev)
+        edge = whiten(buf.integrate(up(last[3]), up(last[4]), calib))
+        cam = Pinhole.create(400.0, 400.0, 376.0, 240.0, width=752, height=480, device=dev)
+        st, _ = _pose_optimize_impl(
+            KfState(*map(up, state0)), up(pts), up(uv), up(np.ones(200, np.float32)),
+            up(np.ones(200, bool)), cam, up(R_cb), up(t_cb), edge, KfState(*map(up, last)),
+            1.0, KfState(*map(up, last)), up(np.full(9, 10.0, np.float32)),
+            use_inertial=True, use_prior=True)
+        finals.append([a.cpu().numpy() for a in st])
+    for a, b in zip(*finals):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)

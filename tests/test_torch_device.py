@@ -3,20 +3,27 @@ host without one they raise instead of running on the CPU. The defaults
 are read through `inspect.signature`, so nothing here touches CUDA."""
 
 import inspect
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from monoorbslam3_tpu_torch import bench_window, convert
+from monoorbslam3_tpu_torch import bench_window, config, convert
 from monoorbslam3_tpu_torch.backend.problems import _identity_edge
 from monoorbslam3_tpu_torch.backend.residuals import KfState
-from monoorbslam3_tpu_torch.models.camera import Pinhole
+from monoorbslam3_tpu_torch.models.camera import Fisheye, Pinhole
+from monoorbslam3_tpu_torch.models.imu import ImuCalib
 from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
 
+TUM_VI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "settings", "tum_vi.yaml")
 ENTRY_POINTS = {
     "OrbExtractor": OrbExtractor.__init__,
     "Pinhole.create": Pinhole.create,
+    "Fisheye.create": Fisheye.create,
+    "ImuCalib.create": ImuCalib.create,
+    "config.build_camera": config.build_camera,
+    "config.build_imu_calib": config.build_imu_calib,
     "bench_window.build_problem": bench_window.build_problem,
     **{f"convert.{n}": getattr(convert, n)
        for n in ("desc_to_torch", "tensor", "pinhole", "kf_state", "preint_edge", "ba_problem")},
@@ -46,7 +53,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda **kw: bench_window.build_problem(n_kf=4, n_fixed=1, n_pts=8,
                                                      obs_per_kf=4, **kw),
              lambda **kw: convert.tensor(np.zeros(3, np.float32), **kw),
-             lambda **kw: convert.desc_to_torch(np.zeros((2, 8), np.uint32), **kw)]
+             lambda **kw: convert.desc_to_torch(np.zeros((2, 8), np.uint32), **kw),
+             lambda **kw: Fisheye.create(fx=100.0, fy=100.0, cx=48.0, cy=32.0,
+                                         dist=[0.0, 0.0, 0.0, 0.0], width=96, height=64, **kw),
+             lambda **kw: ImuCalib.create(np.eye(3), np.zeros(3), 1e-4, 1e-3, 1e-5, 1e-3, **kw),
+             lambda **kw: config.build_camera(config.load_settings(TUM_VI), **kw),
+             lambda **kw: config.build_imu_calib(config.load_settings(TUM_VI), **kw)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()

@@ -82,7 +82,7 @@ def test_fast_score_and_nms_bit_exact(level1):
 
 @pytest.mark.parametrize("ties", [False, True])
 def test_select_keypoints_exact(level1, ties):
-    raw = np.asarray(jfast.fast_score_raw(jnp.asarray(level1)))
+    raw = np.array(jfast.fast_score_raw(jnp.asarray(level1)))
     score = np.array(jfast.nms3(jnp.where(raw > 7.0, raw, 0.0)))
     if ties:
         # equal scores inside cells and across cells: lax.top_k keeps the
@@ -184,3 +184,41 @@ def test_extractor_matches_jax(image):
     ij, it = map(np.asarray, zip(*pairs))
     frac = (_bits(convert.desc_to_numpy(out["desc"])[it]) != _bits(ref["desc"][ij])).mean()
     assert frac <= 0.02, frac
+
+
+def test_subpixel_peak_offsets_match_jax(level1):
+    """The parabola offsets on a raw FAST score map at its NMS maxima (and
+    at a few invalid slots and flat spots): within 1e-5 px."""
+    raw = np.array(jfast.fast_score_raw(jnp.asarray(level1)))
+    peaks = np.asarray(jfast.nms3(jnp.asarray(np.where(raw > 7.0, raw, 0.0))))
+    ys, xs = np.nonzero(peaks[1:-1, 1:-1] > 0)
+    ys, xs = (ys + 1).astype(np.int32), (xs + 1).astype(np.int32)
+    ys = np.concatenate([ys, [5, 0, 10]]).astype(np.int32)
+    xs = np.concatenate([xs, [5, 0, 7]]).astype(np.int32)
+    valid = np.ones(len(ys), bool)
+    valid[-2] = False
+    ref = jfast.subpixel_peak_offsets(jnp.asarray(raw), jnp.asarray(ys), jnp.asarray(xs),
+                                      jnp.asarray(valid))
+    got = tfast.subpixel_peak_offsets(torch.as_tensor(raw), torch.as_tensor(ys),
+                                      torch.as_tensor(xs), torch.as_tensor(valid))
+    assert len(ys) > 50
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=1e-5)
+        assert np.abs(g.numpy()).max() <= 0.5
+    assert float(got[0][-2]) == 0.0 and float(got[1][-2]) == 0.0
+
+
+def test_extractor_subpixel_matches_jax(image):
+    """The extractor with `subpixel`: the same keypoints as without it,
+    each moved by JAX's offset (within 1e-4 px at level 0)."""
+    ref = {k: np.asarray(v) for k, v in jorb.OrbExtractor(
+        H, W, n_features=256, n_levels=4, subpixel=True)(image).items()}
+    out = torb.OrbExtractor(H, W, n_features=256, n_levels=4, subpixel=True, device="cpu")(image)
+    base = torb.OrbExtractor(H, W, n_features=256, n_levels=4, device="cpu")(image)
+    v = ref["valid"] & out["valid"].numpy()
+    assert v.sum() > 150
+    np.testing.assert_array_equal(out["level"].numpy(), ref["level"])
+    np.testing.assert_allclose(out["xy"].numpy()[v], ref["xy"][v], rtol=0, atol=1e-4)
+    moved = np.abs(out["xy"].numpy()[v] - base["xy"].numpy()[v]).max(-1)
+    sf = 1.2 ** out["level"].numpy()[v]
+    assert (moved > 0).mean() > 0.5 and (moved <= 0.5 * sf + 1e-5).all()

@@ -87,14 +87,32 @@ def test_pose_lm_matches_jax(seed):
 
 
 def test_pose_lm_rejects_inertial_branch():
-    jcam, state0, pts, uv, inv_s2, valid, _ = _problem(0, N=16)
+    """The 15-dim branch with its edge switched off, as the tracker calls it
+    without an IMU (identity edge, edge_valid 0): the tail contributes
+    nothing, and the pose agrees with JAX's same call and with the visual
+    6-dim LM. (Before the inertial branch was ported this checked that
+    use_inertial raised NotImplementedError.)"""
+    jcam, state0, pts, uv, inv_s2, valid, _ = _problem(0, N=120)
     cam = convert.pinhole(jcam, device="cpu")
     z = tres.KfState.zeros(device="cpu")
-    with pytest.raises(NotImplementedError):
-        tp._pose_optimize_impl(
-            convert.kf_state(state0, device="cpu"), torch.as_tensor(pts), torch.as_tensor(uv),
-            torch.as_tensor(inv_s2), torch.as_tensor(valid), cam, torch.as_tensor(R_CB),
-            torch.as_tensor(T_CB), tp._identity_edge("cpu"), z, 1.0, z, None, use_inertial=True)
+    st, inl = tp._pose_optimize_impl(
+        convert.kf_state(state0, device="cpu"), torch.as_tensor(pts), torch.as_tensor(uv),
+        torch.as_tensor(inv_s2), torch.as_tensor(valid), cam, torch.as_tensor(R_CB),
+        torch.as_tensor(T_CB), tp._identity_edge("cpu"), z, 0.0, z, None, use_inertial=True)
+    zj = JKfState.zeros()
+    stj, inlj = jp._pose_optimize_impl(
+        JKfState(*map(jnp.asarray, state0)), jnp.asarray(pts), jnp.asarray(uv),
+        jnp.asarray(inv_s2), jnp.asarray(valid), jcam, jnp.asarray(R_CB), jnp.asarray(T_CB),
+        jp._identity_edge(), zj, jnp.float32(0.0), zj, jnp.zeros(9, jnp.float32),
+        use_inertial=True, use_prior=False)
+    assert np.linalg.norm(st.R_wb.numpy() - np.asarray(stj.R_wb)) <= 1e-4
+    assert np.linalg.norm(st.t_wb.numpy() - np.asarray(stj.t_wb)) <= 1e-4
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(inlj))
+    for a in st[2:]:  # v, bg, ba: no residual moves them
+        assert float(a.abs().max()) == 0.0
+    Rv, tv, _ = _run_torch(jcam, state0, pts, uv, inv_s2, valid)
+    assert np.linalg.norm(st.R_wb.numpy() - Rv) <= 1e-4
+    assert np.linalg.norm(st.t_wb.numpy() - tv) <= 1e-4
 
 
 def test_small_inverses_and_retraction_match_jax():
