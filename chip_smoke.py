@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's six paths, each with the kernel launch counts set to 0 just before
+port's seven paths, each with the kernel launch counts set to 0 just before
 it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -26,7 +26,17 @@ it and read just after:
 6. polish BA: `schur_ba` on the full polish's window (96 keyframes, all
    free but the anchor, 4096 points, 18,432 observations, grouped layout;
    D = 1440), deferred and parallel-lambda LM, 12 iterations (K4, its
-   large-D route: 12 launches a solve).
+   large-D route: 12 launches a solve);
+7. store BA: the `Problems` façade at its default capacities on a map
+   store seeded from the trajectory (`seeded_store`: 96 keyframes, 6,000
+   wall points, ~900 observations a keyframe, IMU windows at the EuRoC
+   profile's noise): the inertial init and gauge rewrite on a 13-keyframe
+   store in a rotated, scaled visual frame, then `local_bundle_adjustment`,
+   `local_full_bundle_adjustment`, `local_inertial_bundle_adjustment`
+   (K4's cluster route, 8 launches each) and `full_inertial_optimize`
+   (hybrid: the grouped K = 96 problem with merged IMU windows; K4's
+   large-D route, 12 launches), each held to the JAX package's run of the
+   same calls on the same store.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -62,7 +72,9 @@ by the JAX package's run of the same inputs on the CPU, when the inertial
 stage (preintegration, deltas, prediction, whitening) waits for the card
 even once, when the card's preintegration or whitening leaves the same
 functions on the CPU, or when the polish path's solves launch anything
-but K4's large-D route. Prints, before the last line, the
+but K4's large-D route, or when a store BA call leaves the JAX
+package's costs, outliers, init recovery or polish ATE, syncs inside its
+solve or fetches more than its count. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -116,7 +128,7 @@ MAX_MEDIAN_R_ERR_DEG = 0.05
 
 # visual-inertial drive: the visual drive's frames with IMU samples between
 # them at the profile's rate and noise densities (settings/euroc.yaml:15-20)
-# and a constant bias (tests/test_e2e_synthetic.py:42-43). The profile
+# and a constant bias of the drive's own (BG_TRUE, BA_TRUE). The profile
 # gives the IMU's noise model; the extrinsics stay the rendering rig's
 # (R_BC, T_BC), since the world is rendered through it.
 BG_TRUE = np.array([0.004, -0.003, 0.002])
@@ -185,6 +197,55 @@ POLISH_VARIANTS = {"polish_deferred": dict(deferred=True, grouped_obs=192),
 # (experiments/port_polish_jax.py; PERF.md records the run)
 JAX_POLISH_COST0 = 659415.0
 JAX_POLISH_COST = {"polish_deferred": 2306.817626953125, "polish_parallel": 2306.812255859375}
+
+# store BA: a map store seeded from the trajectory (`seeded_store`) solved
+# through the `Problems` façade's own methods at its default capacities.
+# 96 keyframes every 0.25 s (24 s, 1.3 laps of the circle: the second lap
+# revisits the first's wall, so covisibility anchors reach back in time)
+# over ~6,000 points on the ImageWorld wall (radius 11 m, |z| <= 2 m):
+# ~900 features a keyframe, above the 6,144 observations of a 32-keyframe
+# window and the 4,096 points of the polish, so the subsample rules run
+STORE_KFS, STORE_DT, STORE_POINTS, STORE_SEED = 96, 0.25, 6000, 7
+STORE_WALL_RADIUS, STORE_WALL_HALF_HEIGHT = 11.0, 2.0
+STORE_POS_NOISE_M, STORE_ROT_NOISE_DEG, STORE_VEL_NOISE = 0.01, 0.2, 0.05
+STORE_PT_NOISE_M = 0.02
+STORE_OUTLIER_FRAC, STORE_FLIP_BITS = 0.02, 3
+# the biases of tests/test_e2e_synthetic.py:42-43 (the store starts at zero)
+STORE_BG_TRUE = np.array([0.003, -0.002, 0.001])
+STORE_BA_TRUE = np.array([0.02, -0.015, 0.01])
+# velocity (0.1 m/s), gyro-bias and acc-bias prior of a keyframe (the
+# bias terms of Tracking._create_keyframe)
+STORE_PRIOR_INV_SIGMA = [10.0] * 3 + [1e2] * 3 + [1e1] * 3
+# the inertial init's store: 13 keyframes over 3 s in a visual frame
+# rotated by exp([0.3, -0.2, 0.5]) and scaled by 1/4, positions noised by
+# 2e-4 visual units (~0.8 mm), no rotation noise (the setting of
+# tests/test_solver.py::test_inertial_init_recovers_scale_under_visual_noise)
+INIT_KFS, INIT_POINTS, INIT_SCALE = 13, 2000, 4.0
+INIT_ROT_VEC = (0.3, -0.2, 0.5)
+INIT_POS_NOISE = 2e-4
+# the JAX package's run of the same calls on the same stores on the CPU
+# (experiments/port_store_ba_jax.py; PERF.md records the run). Its fetches
+# include one of the constant identity edges that the port builds on the
+# host, so the port makes one fewer; the pathological-start split (cost0
+# above 1e6) adds one read to the port's call, as it adds reads to JAX's
+JAX_STORE_INIT = dict(scale=3.8608593771387505,
+                      gravity=[0.11486967653036118, 0.32962867617607117, -0.9370965361595154],
+                      bg=[0.0027895288076251745, -0.0019404549384489655, 0.0007848991081118584])
+JAX_STORE = {
+    "local_bundle_adjustment": dict(cost0=49101.69921875, cost=17395.49609375, n_outliers=269,
+                                    n_points=1956, fetches=2),
+    "local_full_bundle_adjustment": dict(cost0=262295.40625, cost=20578.068359375,
+                                         n_outliers=300, n_points=2048, fetches=3),
+    "local_inertial_bundle_adjustment": dict(cost0=263516.25, cost=153645.953125,
+                                             n_outliers=2783, n_points=1956, fetches=3),
+    "full_inertial_optimize": dict(cost0=1855166.25, cost=39994.8203125, n_outliers=380,
+                                   n_points=4096, fetches=3, ate_after_m=0.006209856837182448),
+}
+STORE_ITERS = {"local_bundle_adjustment": 8, "local_full_bundle_adjustment": 8,
+               "local_inertial_bundle_adjustment": 8, "full_inertial_optimize": 12}
+PATHOLOGICAL_COST0 = 1e6
+STORE_SCALE_RTOL, STORE_GRAVITY_DEG, STORE_BG_TOL = 1e-3, 0.05, 1e-5
+STORE_OUTLIER_RTOL, STORE_ATE_FACTOR = 0.02, 1.5
 
 
 # K4 phase: seeded systems beside the BA's own (D = 465 is ragged, K = 31;
@@ -593,6 +654,326 @@ def polish_ba(device, n_runs=7, log=print):
     edges."""
     return window_ba(device, n_runs=n_runs, log=log, window=POLISH_WINDOW,
                      variants=POLISH_VARIANTS, iters=POLISH_ITERS)
+
+
+def _store_profile():
+    """(fx, fy, cx, cy, width, height, IMU node) of the EuRoC profile."""
+    from monoorbslam3_tpu_torch import config
+
+    s = config.load_settings(SETTINGS / EUROC_PROFILE)
+    K = np.asarray(s["Camera"]["CameraMatrix"], np.float64).reshape(3, 3)
+    return (K[0, 0], K[1, 1], K[0, 2], K[1, 2], int(s["Camera"]["Width"]),
+            int(s["Camera"]["Height"]), s["IMU"])
+
+
+def seeded_store(store_cls, buf_cls, n_kf=STORE_KFS, n_pts=STORE_POINTS, dt_kf=STORE_DT,
+                 seed=STORE_SEED, pos_noise=STORE_POS_NOISE_M, rot_noise_deg=STORE_ROT_NOISE_DEG,
+                 vel_noise=STORE_VEL_NOISE, visual_frame=None, n_feat=N_FEAT, max_obs=24):
+    """A map store seeded from the synthetic trajectory, numpy only, built
+    with the given MapStore and ImuBuffer classes (either package's, so both
+    packages solve the same store).
+
+    Keyframes every `dt_kf` seconds along `sim.Trajectory` with the rig's
+    extrinsics (R_BC, T_BC); `n_pts` points on the ImageWorld's cylinder
+    wall (radius STORE_WALL_RADIUS), each projected with the EuRoC
+    profile's pinhole (ideal model, 8 px margin) into every keyframe that
+    sees it, at most `n_feat` features a keyframe (a seeded subset), in a
+    seeded feature order; pixel noise 0.5 px x 1.2^level (levels 0-2),
+    STORE_OUTLIER_FRAC of the observations moved 15-40 px (gross
+    outliers); descriptors random u32 words per point with STORE_FLIP_BITS
+    bits flipped per observation. Keyframe states perturbed by `pos_noise`
+    and `rot_noise_deg` (the first keyframe exact: it anchors the gauge),
+    velocities by `vel_noise`, biases zero; the velocity/bias prior
+    STORE_PRIOR_INV_SIGMA; each keyframe's IMU window holds the
+    trajectory's samples to the next keyframe at the profile's rate and
+    noise, biased by STORE_BG_TRUE/STORE_BA_TRUE. Points seen by two
+    keyframes or more enter the store (perturbed by STORE_PT_NOISE_M) with
+    their observations in keyframe order, then `update_point_stats`.
+
+    `visual_frame=(R_vw, s)` stores the map in a rotated frame scaled by
+    1/s (a monocular map before the inertial init): camera centres and
+    points are rotated and scaled, the metric lever arm T_BC is kept.
+
+    Returns (store, true body positions [n_kf, 3] in the world frame)."""
+    from monoorbslam3_tpu_torch.backend.problems import _np_exp_so3
+    from monoorbslam3_tpu_torch.sim import Trajectory
+
+    fx, fy, cx, cy, W, H, imu = _store_profile()
+    freq = float(imu["Frequency"])
+    rng = np.random.default_rng(seed)
+    traj = Trajectory()
+    times = dt_kf * np.arange(n_kf)
+    R_vw, s_inv = (np.eye(3), 1.0) if visual_frame is None else (visual_frame[0], 1.0 / visual_frame[1])
+
+    th = rng.uniform(0.0, 2.0 * np.pi, n_pts)
+    X = np.stack([STORE_WALL_RADIUS * np.cos(th), STORE_WALL_RADIUS * np.sin(th),
+                  rng.uniform(-STORE_WALL_HALF_HEIGHT, STORE_WALL_HALF_HEIGHT, n_pts)], 1)
+    desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
+
+    store = store_cls(max_kf=max(128, n_kf), max_pt=max(8192, n_pts), n_feat=n_feat,
+                      max_obs=max_obs)
+    obs = [[] for _ in range(n_pts)]  # (keyframe slot, feature) per point
+    for i, t in enumerate(times):
+        R_wb, p_wb = traj.R_wb(t), traj.pos(t)
+        R_wc = R_wb @ R_BC
+        pc = (X - (p_wb + R_wb @ T_BC)) @ R_wc  # camera-frame points
+        z = np.maximum(pc[:, 2], 1e-6)
+        uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], 1)
+        vis = np.nonzero((pc[:, 2] > 0.1) & (uv[:, 0] >= 8) & (uv[:, 0] < W - 8)
+                         & (uv[:, 1] >= 8) & (uv[:, 1] < H - 8))[0]
+        if len(vis) > n_feat:
+            vis = np.sort(rng.choice(vis, n_feat, replace=False))
+        n = len(vis)
+        slots = rng.permutation(n)
+        level = rng.integers(0, 3, n).astype(np.int32)
+        noise = rng.normal(scale=0.5, size=(n, 2)) * (SCALE ** level)[:, None]
+        bad = rng.uniform(size=n) < STORE_OUTLIER_FRAC
+        ang = rng.uniform(0.0, 2.0 * np.pi, n)
+        mag = rng.uniform(15.0, 40.0, n)
+        noise[bad] = np.stack([mag * np.cos(ang), mag * np.sin(ang)], 1)[bad]
+        fdesc = desc[vis].copy()
+        for _ in range(STORE_FLIP_BITS):
+            b = rng.integers(0, 256, n)
+            fdesc[np.arange(n), b // 32] ^= (np.uint32(1) << (b % 32).astype(np.uint32))
+        feats = dict(xy=np.zeros((n_feat, 2), np.float32), level=np.zeros(n_feat, np.int32),
+                     angle=np.zeros(n_feat, np.float32),
+                     desc=np.zeros((n_feat, 8), np.uint32), valid=np.zeros(n_feat, bool),
+                     sigma2=np.ones(n_feat, np.float32))
+        feats["xy"][slots] = (uv[vis] + noise).astype(np.float32)
+        feats["level"][slots] = level
+        feats["desc"][slots] = fdesc
+        feats["valid"][slots] = True
+        feats["sigma2"][slots] = (SCALE ** (2 * level)).astype(np.float32)
+
+        # the stored state: camera centre in the (visual) map frame, the
+        # metric lever arm on top
+        dR = np.eye(3) if i == 0 else _np_exp_so3(
+            rng.normal(size=3) * np.radians(rot_noise_deg) / np.sqrt(3.0))
+        R_st = R_vw @ R_wb @ dR
+        c_st = R_vw @ (p_wb + R_wb @ T_BC) * s_inv
+        t_st = c_st - R_st @ T_BC + (0.0 if i == 0 else rng.normal(scale=pos_noise, size=3))
+        v_st = R_vw @ traj.vel(t) * s_inv + rng.normal(scale=vel_noise, size=3)
+        z3 = np.zeros(3, np.float32)
+        k = store.add_keyframe(float(t), R_st.astype(np.float32), t_st.astype(np.float32),
+                               v_st.astype(np.float32), z3, z3, feats,
+                               prior_inv_sigma=np.asarray(STORE_PRIOR_INV_SIGMA, np.float32))
+        for j, f in zip(vis, slots):
+            obs[j].append((k, int(f)))
+        if i + 1 < n_kf:
+            g, a, d = traj.imu_samples(t, times[i + 1], freq, bg=STORE_BG_TRUE, ba=STORE_BA_TRUE,
+                                       noise_gyro=float(imu["NoiseGyro"]),
+                                       noise_acc=float(imu["NoiseAcc"]), rng=rng)
+            buf = buf_cls()
+            for q in range(len(d)):
+                buf.add(g[q], a[q], d[q])
+            store.kf_imu[k] = buf
+
+    pids = []
+    for j in range(n_pts):
+        if len(obs[j]) < 2:
+            continue
+        xyz = R_vw @ (X[j] + rng.normal(scale=STORE_PT_NOISE_M, size=3)) * s_inv
+        p = store.add_point(xyz.astype(np.float32), desc[j], obs[j][0][0])
+        for k, f in obs[j]:
+            store.add_observation(p, k, f)
+        pids.append(p)
+    store.update_point_stats(pids, R_CB, T_CB, SCALE ** np.arange(N_LEVELS))
+    return store, traj.pos(times)
+
+
+def store_ate(store, true_pos):
+    """RMS keyframe position error (m) of the store against the truth, in
+    the world frame the first keyframe anchors (no alignment)."""
+    ids = store.keyframe_ids()
+    err = np.asarray(store.kf_t, np.float64)[ids] - true_pos[:len(ids)]
+    return float(np.sqrt((err ** 2).sum(1).mean()))
+
+
+def store_calibration(calib_cls, **kw):
+    """The store's IMU calibration with `calib_cls` (either package's
+    ImuCalib): the rig's extrinsics, the EuRoC profile's noise model."""
+    imu = _store_profile()[-1]
+    return calib_cls.create(R_bc=R_BC, t_bc=T_BC, noise_gyro=float(imu["NoiseGyro"]),
+                            noise_acc=float(imu["NoiseAcc"]), walk_gyro=float(imu["WalkGyro"]),
+                            walk_acc=float(imu["WalkAcc"]), freq=float(imu["Frequency"]), **kw)
+
+
+def init_phase(problems, store_cls, buf_cls):
+    """`problems.inertial_optimize` on the init store (INIT_*), then the
+    gauge rewrite `apply_scale_rotation` as LocalMapping.initialize_imu
+    makes it. Returns the recovered scale, gravity direction (the world's
+    -z seen in the visual frame), gravity angle to the truth, gyro-bias
+    error and the init's costs."""
+    from monoorbslam3_tpu_torch.backend.problems import _np_exp_so3
+
+    R_vw = _np_exp_so3(np.asarray(INIT_ROT_VEC))
+    st, _ = seeded_store(store_cls, buf_cls, n_kf=INIT_KFS, n_pts=INIT_POINTS,
+                         pos_noise=INIT_POS_NOISE, rot_noise_deg=0.0,
+                         visual_frame=(R_vw, INIT_SCALE))
+    out = problems.inertial_optimize(st)
+    if out is None:
+        raise RuntimeError("inertial init deferred on the init store")
+    st.apply_scale_rotation(out["R_wg"].T, out["scale"], t_bc=T_BC.astype(np.float32))
+    g_est = np.asarray(out["R_wg"], np.float64) @ np.array([0.0, 0.0, -1.0])
+    g_true = R_vw @ np.array([0.0, 0.0, -1.0])
+    return dict(scale=out["scale"], scale_err_rel=abs(out["scale"] - INIT_SCALE) / INIT_SCALE,
+                gravity=g_est.tolist(), gravity_err_deg=_angle_deg(g_est, g_true),
+                bg=np.asarray(out["bg"], np.float64).tolist(),
+                bg_err=float(np.linalg.norm(out["bg"] - STORE_BG_TRUE)),
+                cost0=out["cost0"], cost=out["cost"], scale_sigma_rel=out["scale_sigma_rel"])
+
+
+def _angle_deg(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b)), a @ b)))
+
+
+def store_calls(store):
+    """The store BA sequence of `Problems` calls, each (name, fn(problems,
+    store)), at the mapper's defaults (window 10, 8 iterations; the polish
+    12): the visual covisibility window around the newest keyframe, the
+    visual-inertial sliding window, the velocity/bias window, and the full
+    polish (hybrid: at 96 keyframes the grouped K = 96 problem with merged
+    IMU windows)."""
+    newest = store.keyframe_ids()[-1]
+    return (("local_bundle_adjustment", lambda pr, st: pr.local_bundle_adjustment(st, newest)),
+            ("local_full_bundle_adjustment", lambda pr, st: pr.local_full_bundle_adjustment(st)),
+            ("local_inertial_bundle_adjustment",
+             lambda pr, st: pr.local_inertial_bundle_adjustment(st)),
+            ("full_inertial_optimize", lambda pr, st: pr.full_inertial_optimize(st)))
+
+
+def store_checks(sba, on_card=True):
+    """The store BA path's failures against the JAX package's run
+    (JAX_STORE_INIT, JAX_STORE) and, on the card, the path's own counts
+    (fetches, syncs inside the solves, K4's launches by route): an empty
+    list when every bound holds."""
+    fails = []
+    init = sba["init"]
+    if not abs(init["scale"] / JAX_STORE_INIT["scale"] - 1.0) <= STORE_SCALE_RTOL:
+        fails.append(f"store BA init: scale {init['scale']} vs {JAX_STORE_INIT['scale']}")
+    if not _angle_deg(init["gravity"], JAX_STORE_INIT["gravity"]) <= STORE_GRAVITY_DEG:
+        fails.append(f"store BA init: gravity {init['gravity']} vs {JAX_STORE_INIT['gravity']}")
+    if not np.linalg.norm(np.subtract(init["bg"], JAX_STORE_INIT["bg"])) <= STORE_BG_TOL:
+        fails.append(f"store BA init: bg {init['bg']} vs {JAX_STORE_INIT['bg']}")
+    for name, ref in JAX_STORE.items():
+        r = sba["calls"][name]
+        for key, tol in (("cost0", BA_COST0_RTOL), ("cost", BA_COST_RTOL)):
+            if not abs(r[key] - ref[key]) <= tol * ref[key]:
+                fails.append(f"store BA {name}: {key} {r[key]} vs {ref[key]}")
+        if abs(r["n_outliers"] - ref["n_outliers"]) > max(1.0, STORE_OUTLIER_RTOL * ref["n_outliers"]):
+            fails.append(f"store BA {name}: {r['n_outliers']} outliers vs {ref['n_outliers']}")
+        if r["n_points"] != ref["n_points"] or not r["finite"]:
+            fails.append(f"store BA {name}: {r['n_points']} points (JAX {ref['n_points']}), "
+                         f"finite {r['finite']}")
+        if not on_card:
+            continue
+        want = ref["fetches"] - 1 + (r["cost0"] > PATHOLOGICAL_COST0)
+        if r["fetches"] != want:
+            fails.append(f"store BA {name}: {r['fetches']} fetches, expected {want}")
+        if r["syncs_in_solve"]:
+            fails.append(f"store BA {name}: {r['syncs_in_solve']} host syncs inside the solve "
+                         f"{r['sync_sites']}")
+        route = "chol_solve_l2" if name == "full_inertial_optimize" else "chol_solve"
+        if r["k4_launches"] != {**{"chol_solve": 0, "chol_solve_l2": 0},
+                                route: STORE_ITERS[name]}:
+            fails.append(f"store BA {name}: K4 launches {r['k4_launches']}, expected "
+                         f"{STORE_ITERS[name]} of {route}")
+    polish = sba["calls"]["full_inertial_optimize"]
+    ate_max = STORE_ATE_FACTOR * JAX_STORE["full_inertial_optimize"]["ate_after_m"]
+    if not polish["ate_after_m"] <= ate_max:
+        fails.append(f"store BA polish: ATE {polish['ate_after_m']} m > {ate_max}")
+    return fails
+
+
+def store_ba(device, n_runs=5, log=print):
+    """The store BA path on `device`, through the `Problems` façade at its
+    default capacities (the CPU rehearsal passes "cpu"). The launch counts
+    are set to 0 after the façade's warm-up, just before the path.
+
+    1. The inertial init on its own 13-keyframe store (`init_phase`).
+    2. Each call of `store_calls` on a copy of the 96-keyframe seeded store
+       (every call starts from the same bits as the JAX package's run of
+       it, `experiments/port_store_ba_jax.py`): one counted run, where the
+       solve (`schur_ba`) runs under the sync debug mode, K4's launches are
+       counted by route, the façade's fetches are counted and the last
+       reduced systems are kept for the K4 phase; then `n_runs` timed runs
+       on fresh copies (host clock, each ending in the call's own fetch and
+       a synchronize). The polish also reports the keyframe ATE of the
+       store before and after it.
+
+    Returns {"init": ..., "calls": {name: record}, "systems": {name:
+    [(S, b)]}}."""
+    import copy
+
+    import torch
+
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.backend import problems as problems_mod
+    from monoorbslam3_tpu_torch.backend.problems import Problems
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer, ImuCalib
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import chol_pallas, cuda_lib
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cam = config.build_camera(config.load_settings(SETTINGS / EUROC_PROFILE), device=dev)
+    pr = Problems(cam, store_calibration(ImuCalib, device=dev), device=dev)
+    pr.warm_solvers()
+    _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
+    t0 = time.perf_counter()
+    init = init_phase(pr, MapStore, ImuBuffer)
+    init["host_s"] = time.perf_counter() - t0
+    log(json.dumps({"store_ba": "inertial_optimize"} | init))
+    t0 = time.perf_counter()
+    base, truth = seeded_store(MapStore, ImuBuffer)
+    log(f"store: {base.n_keyframes()} keyframes, {base.n_points()} points, "
+        f"{int((base.kf_feat_pt >= 0).sum())} observations, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    watch = SyncWatch()
+    orig_schur = problems_mod.schur_ba
+
+    def watched_schur(*args, **kwargs):
+        with watch(on_card):
+            return orig_schur(*args, **kwargs)
+
+    solver = "chol_solve_cuda" if on_card else "chol_solve_plain"
+    calls, systems = {}, {}
+    for name, fn in store_calls(base):
+        st = copy.deepcopy(base)
+        ate0 = store_ate(st, truth)
+        watch.n, watch.sites = 0, collections.Counter()
+        n0, before = pr.syncs.n, dict(cuda_lib.launches)
+        problems_mod.schur_ba = watched_schur
+        try:
+            with _Capture(chol_pallas, solver, maxlen=1) as k4:
+                out = fn(pr, st)
+        finally:
+            problems_mod.schur_ba = orig_schur
+        sync()
+        rec = dict(cost0=out["cost0"], cost=out["cost"], n_outliers=out["n_outliers"],
+                   n_points=out["n_points"], n_kf=len(out["ids"]), n_ie=out["n_ie"],
+                   fetches=pr.syncs.n - n0, syncs_in_solve=watch.n,
+                   sync_sites=dict(watch.sites),
+                   k4_launches={k: cuda_lib.launches[k] - before[k]
+                                for k in ("chol_solve", "chol_solve_l2")},
+                   ate_before_m=ate0, ate_after_m=store_ate(st, truth),
+                   finite=bool(np.isfinite(st.kf_t).all() and np.isfinite(st.pt_xyz).all()))
+        systems[name] = list(k4.calls)
+        times = []
+        for _ in range(n_runs):
+            st = copy.deepcopy(base)
+            t0 = time.perf_counter()
+            fn(pr, st)
+            sync()
+            times.append(time.perf_counter() - t0)
+        rec["wall_ms"] = [1e3 * t for t in times]
+        rec["median_wall_ms"] = 1e3 * float(np.median(times)) if times else float("nan")
+        calls[name] = rec
+        log(json.dumps({"store_ba": name} | {k: v for k, v in rec.items()}))
+    return dict(init=init, calls=calls, systems=systems)
 
 
 class SyncWatch:
@@ -1459,6 +1840,30 @@ def main(argv=None) -> int:
               f"{json.dumps(r['k4_launches_in_solve'])}; host syncs per solve: "
               f"{r['syncs_in_solve']} inside + {r['fetches_per_solve']} fetch")
 
+    # -- path 7, store BA: the Problems façade on a seeded map store ---------
+    # (store_ba sets the counts to 0 itself, after the façade's warm-up)
+    sba = store_ba(dev)
+    torch.cuda.synchronize()
+    store_launches = dict(cuda_lib.launches)
+    print("launches in the store BA runs:", json.dumps(store_launches))
+    si = sba["init"]
+    print(f"store BA inertial_optimize: scale {si['scale']:.7f} (JAX-CPU "
+          f"{JAX_STORE_INIT['scale']:.7f}, truth {INIT_SCALE}), gravity {si['gravity_err_deg']:.5f} "
+          f"deg from the truth and {_angle_deg(si['gravity'], JAX_STORE_INIT['gravity']):.2e} deg "
+          f"from JAX-CPU's, bg error {si['bg_err']:.3e} ({np.linalg.norm(np.subtract(si['bg'], JAX_STORE_INIT['bg'])):.2e} "
+          f"from JAX-CPU's), {1e3 * si['host_s']:.1f} ms host")
+    for name, r in sba["calls"].items():
+        ref = JAX_STORE[name]
+        print(f"store BA {name}: cost0 {r['cost0']:.4f} (JAX-CPU {ref['cost0']}), cost "
+              f"{r['cost']:.4f} (JAX-CPU {ref['cost']}); {r['n_outliers']} outliers (JAX-CPU "
+              f"{ref['n_outliers']}), {r['n_points']} points, {r['n_kf']} KF, {r['n_ie']} inertial "
+              f"edges; K4 {json.dumps(r['k4_launches'])}; fetches {r['fetches']} (JAX-CPU "
+              f"{ref['fetches']}, one of them its constant identity edges), host syncs inside the "
+              f"solve {r['syncs_in_solve']}; median of {len(r['wall_ms'])} calls "
+              f"{r['median_wall_ms']:.2f} ms (quartiles {_pct(r['wall_ms'], 25):.2f} / "
+              f"{_pct(r['wall_ms'], 75):.2f}); keyframe ATE {r['ate_before_m']:.5f} -> "
+              f"{r['ate_after_m']:.5f} m")
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -1671,7 +2076,9 @@ def main(argv=None) -> int:
         seeded[f"seeded D={D}"] = [(torch.as_tensor(S, device=dev), torch.as_tensor(b, device=dev))]
     systems = {"BA G=1": ba["flat_deferred"]["systems"], "BA G=2": ba["flat_parallel"]["systems"],
                "polish G=1": polish["polish_deferred"]["systems"],
-               "polish G=2": polish["polish_parallel"]["systems"], **seeded}
+               "polish G=2": polish["polish_parallel"]["systems"],
+               "store local G=1": sba["systems"]["local_full_bundle_adjustment"],
+               "store polish G=1": sba["systems"]["full_inertial_optimize"], **seeded}
     route_launches = {}
     for label, items in systems.items():
         e64, ep, epl64 = 0.0, 0.0, 0.0
@@ -1784,8 +2191,11 @@ def main(argv=None) -> int:
                      replaces="monoorbslam3_tpu/ops/chol_pallas.py:40", max_abs_err=k4_abs,
                      max_rel_err_vs_f64=k4_f64, max_rel_err_vs_plain=k4_plain, checks=k4_checks,
                      launches_per_frame=(launches["chol_solve"] + launches["chol_solve_l2"]) / n_fr)
+    store_k4 = {name: r["k4_launches"] for name, r in sba["calls"].items()}
     kernels.append(dict(name="chol_solve", **k4_common,
                         launches=ba_launches["chol_solve"],
+                        launches_store_ba=store_launches["chol_solve"],
+                        launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
                         g2=k4_rows["G2"],
@@ -1795,6 +2205,8 @@ def main(argv=None) -> int:
     p1 = k4_rows["polish_g1"]
     kernels.append(dict(name="chol_solve_l2", **k4_common,
                         launches=polish_launches["chol_solve_l2"],
+                        launches_store_ba=store_launches["chol_solve_l2"],
+                        launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
                         grid_blocks=grid_blocks, polish_solves=polish_ab,
@@ -1840,7 +2252,9 @@ def main(argv=None) -> int:
                             ("mapper search", "hamming", map_launches),
                             ("fisheye mapper search", "hamming", fish_launches),
                             ("window BA", "chol_solve", ba_launches),
-                            ("polish BA", "chol_solve_l2", polish_launches)):
+                            ("polish BA", "chol_solve_l2", polish_launches),
+                            ("store BA", "chol_solve", store_launches),
+                            ("store BA", "chol_solve_l2", store_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1853,6 +2267,7 @@ def main(argv=None) -> int:
             failures.append(f"{kern}: no BMMA (tensor-core) instruction in its SASS")
     if ba_launches["chol_solve_l2"]:
         failures.append("window BA: K4's large-D route ran on the D = 480 systems")
+    failures += store_checks(sba)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

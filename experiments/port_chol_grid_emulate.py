@@ -19,10 +19,19 @@ fails when, inside one barrier interval, a location written by one actor
 is read or written by another: either order would race on the card.
 
     python experiments/port_chol_grid_emulate.py
+    python experiments/port_chol_grid_emulate.py --store
 
 Prints, per D: the relative error against float64, the barriers, the tile
 tasks, the work buffer's size, and whether non-SPD systems come out
-all-NaN.
+all-NaN. A tile update sums a panel's 16 products first and subtracts the
+sum once, as the kernel does. `--store` instead builds the last reduced
+system of the full polish on chip_smoke's seeded 96-keyframe map store
+(the port on the CPU, ~20 s; D = 1440, condition ~9e4) and solves it as the
+kernel does now and as it did before PR 7, when each product left the
+entry on its own (`one_by_one`: products below half an ulp of the entry
+round away, always upward on the diagonal); for each it prints the
+relative error against float64, the plain version's beside it, and the
+mean of diag(L L^T - S), the bias the rounding leaves in the factor.
 """
 
 from __future__ import annotations
@@ -105,9 +114,23 @@ class Ledger:
         self.barriers += 1
 
 
-def grid_solve(S, b):
-    """Solve S x = b (float32, [D, D], [D]) as the grid route does.
-    Returns (x, ledger, ok)."""
+def tile_update(a, LTi, LTj, one_by_one=False):
+    """a - L_i L_j^T in float32 from the transposed tiles: the 16 products
+    summed, then one subtraction (the kernel's `rank_update`), or with
+    `one_by_one` each product subtracted and rounded on its own (an FMA
+    into the entry: exact product and difference, one rounding)."""
+    if not one_by_one:
+        return np.asarray(a - LTi.T @ LTj, np.float32)
+    a = a.astype(np.float64)
+    for m in range(NB):
+        a = (a - np.outer(LTi[m].astype(np.float64), LTj[m].astype(np.float64))).astype(np.float32)
+        a = a.astype(np.float64)
+    return a.astype(np.float32)
+
+
+def grid_solve(S, b, one_by_one=False):
+    """Solve S x = b (float32, [D, D], [D]) as the grid route does (see
+    `tile_update` for `one_by_one`). Returns (x, ledger, ok)."""
     D = S.shape[0]
     T = -(-D // NB)
     Dp = NB * T
@@ -132,7 +155,7 @@ def grid_solve(S, b):
                 a = g.read(("F", blk), ("A", k1, k1))
                 if k >= 0:
                     LT = g.read(("F", blk), ("A", k1, k))
-                    a = f32(a - LT.T @ LT)
+                    a = tile_update(a, LT, LT, one_by_one)
                 DB[blk][k1 & 1], o = factor_diag(a)
                 ok[blk] = ok[blk] and o
                 if blk == 0:  # the leader keeps Li^T for the solves
@@ -146,7 +169,7 @@ def grid_solve(S, b):
                     me = ("A", i, j)
                     LTi = g.read(me, ("A", i, k))
                     LTj = g.read(me, ("A", j, k))
-                    g.write(me, ("A", i, j), f32(g.read(me, ("A", i, j)) - LTi.T @ LTj))
+                    g.write(me, ("A", i, j), tile_update(g.read(me, ("A", i, j)), LTi, LTj, one_by_one))
                     g.tasks += 1
             # right-hand side blocks: y_k written, panel k taken out of the rest
             Dk = DB[0][k & 1]
@@ -165,7 +188,7 @@ def grid_solve(S, b):
                 me = ("C", i)
                 a = g.read(me, ("A", i, k1))
                 if k >= 0:
-                    a = f32(a - g.read(me, ("A", i, k)).T @ g.read(me, ("A", k1, k)))
+                    a = tile_update(a, g.read(me, ("A", i, k)), g.read(me, ("A", k1, k)), one_by_one)
                 g.write(me, ("A", i, k1), f32(a @ Dn).T.copy())  # stored transposed
                 g.tasks += 1
         g.sync()
@@ -204,8 +227,69 @@ def grid_solve(S, b):
     return x[:D], g, ok[0]
 
 
+def factor_of(g, T):
+    """The emulated factor L [T*16, T*16] (float64): the off-diagonal tiles
+    as stored (transposed), the diagonal blocks as the inverse of Li."""
+    L = np.zeros((T * NB, T * NB))
+    for i in range(T):
+        L[NB * i:NB * i + NB, NB * i:NB * i + NB] = np.linalg.inv(
+            g.data[("Li", i)].T.astype(np.float64))
+        for j in range(i):
+            L[NB * i:NB * i + NB, NB * j:NB * j + NB] = g.data[("A", i, j)].T
+    return L
+
+
+def store_polish_system():
+    """The last reduced system K4 solves in the full polish of
+    chip_smoke.store_ba, built by the port on the CPU."""
+    import copy
+
+    import torch
+
+    import chip_smoke as cs
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.backend.problems import Problems
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer, ImuCalib
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import chol_pallas
+
+    cpu = torch.device("cpu")
+    cam = config.build_camera(config.load_settings(cs.SETTINGS / cs.EUROC_PROFILE), device=cpu)
+    pr = Problems(cam, cs.store_calibration(ImuCalib, device=cpu), device=cpu)
+    store, _ = cs.seeded_store(MapStore, ImuBuffer)
+    with cs._Capture(chol_pallas, "chol_solve_plain", maxlen=1) as cap:
+        pr.full_inertial_optimize(copy.deepcopy(store))
+    S, b = cap.calls[-1]
+    return S[0].numpy(), b[0].numpy()
+
+
+def store_main():
+    import torch
+
+    from monoorbslam3_tpu_torch.ops.chol_pallas import chol_solve_plain
+
+    S, b = store_polish_system()
+    D = S.shape[0]
+    S64 = S.astype(np.float64)
+    x64 = np.linalg.solve(S64, b.astype(np.float64))
+    rel = lambda x: float(np.linalg.norm(x - x64) / np.linalg.norm(x64))
+    xp = chol_solve_plain(torch.as_tensor(S)[None], torch.as_tensor(b)[None])[0].numpy()
+    lower = np.tril(S64) + np.tril(S64, -1).T
+    print(json.dumps(dict(D=D, cond=float(np.linalg.cond(S64)), plain_rel_err_vs_f64=rel(xp))))
+    for one_by_one in (False, True):
+        x, g, ok = grid_solve(S, b, one_by_one)
+        E = factor_of(g, -(-D // NB))[:D, :D]
+        E = E @ E.T - lower
+        print(json.dumps(dict(update="one product at a time (before PR 7)" if one_by_one
+                              else "products summed, then subtracted (the kernel)",
+                              rel_err_vs_f64=rel(x), mean_diag_bias=float(np.diag(E).mean()),
+                              mean_abs_diag=float(np.abs(np.diag(E)).mean()))), flush=True)
+
+
 def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    if "--store" in sys.argv[1:]:
+        return store_main()
     from chip_smoke import seeded_not_spd, seeded_spd
 
     rng = np.random.default_rng(0)

@@ -115,7 +115,9 @@
 //     side cost 1.11x one (0.94 against 0.85 ms at D = 1440), where running
 //     them in turn would cost 2x.
 //   - Arithmetic: FP32 FMAs, every output element accumulated by one
-//     thread in a fixed order, no atomics: two runs give the same bits.
+//     thread in a fixed order, no atomics: two runs give the same bits. A
+//     panel's 16 products are summed before they leave an entry
+//     (`rank_update`), as the emulation and the cluster route do.
 // Where its 0.85 ms at D = 1440, G = 1 goes (block 0's clock64 spans,
 // `chol_solve_grid_clocks_f32`, same card): 37 us loading S into tiles,
 // 489 us in the 91 factor phases (5.4 us each: a grid barrier, an L2 round
@@ -127,9 +129,9 @@
 // ~1.6e3 after the Jacobi scaling) lands up to 8e-4 (relative) from the
 // f64 solution, whichever library computes it. One refinement step, with
 // the residual accumulated in f64 and the same factor reused, brings it
-// below 1e-6. The polish window's systems (D = 1440, one anchor, condition
-// ~4.8e4) are further out: 2e-4 to 6e-4 after the step, for this kernel and
-// for the library's Cholesky alike (chip_smoke.py prints both).
+// below 1e-6. The bench polish window's systems (D = 1440, one anchor,
+// condition ~4.8e4) are further out: 2e-4 to 6e-4 after the step, for this
+// kernel and for the library's Cholesky alike (chip_smoke.py prints both).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -657,7 +659,16 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 
 // One warp: the lane's 8 entries a[] of a tile (row lane / 2, columns
 // 8 (lane % 2) ..) minus L_i L_j^T, from the transposed tiles LT_i, LT_j in
-// global memory, staged through the warp's scratch `sc` (two tiles).
+// global memory, staged through the warp's scratch `sc` (two tiles). The 16
+// products are summed first and leave the entry in one subtraction: taken
+// out one by one, a product below half an ulp of the entry (a far panel's,
+// |L| < 2.4e-4 against an entry near 1) is rounded away every time, always
+// in the same direction, and over 90 panels the lost sum biases the Schur
+// complements upward. On the full polish built from a map store (D = 1440,
+// condition ~9e4) that left the refined solve 2e-3 from float64 on an H100
+// (NVIDIA H100 80GB HBM3, 700 W) where the library's Cholesky lands at
+// 8e-6; `experiments/port_chol_grid_emulate.py --store` reproduces both
+// orders. The cluster route already summed first.
 __device__ __forceinline__ void rank_update(const float* LTi, const float* LTj, float* sc,
                                             float (&a)[8]) {
   const int lane = threadIdx.x & 31;
@@ -670,20 +681,23 @@ __device__ __forceinline__ void rank_update(const float* LTi, const float* LTj, 
   s4[lane + 64] = ld4(LTj + 4 * lane);
   s4[lane + 96] = ld4(LTj + 4 * (lane + 32));
   __syncwarp();
+  float acc[8] = {};
 #pragma unroll
   for (int m = 0; m < kNB; ++m) {
     const float u = sc[m * kNB + r];
     const float4 w0 = *reinterpret_cast<const float4*>(sc + kTile + m * kNB + c0);
     const float4 w1 = *reinterpret_cast<const float4*>(sc + kTile + m * kNB + c0 + 4);
-    a[0] = fmaf(-u, w0.x, a[0]);
-    a[1] = fmaf(-u, w0.y, a[1]);
-    a[2] = fmaf(-u, w0.z, a[2]);
-    a[3] = fmaf(-u, w0.w, a[3]);
-    a[4] = fmaf(-u, w1.x, a[4]);
-    a[5] = fmaf(-u, w1.y, a[5]);
-    a[6] = fmaf(-u, w1.z, a[6]);
-    a[7] = fmaf(-u, w1.w, a[7]);
+    acc[0] = fmaf(u, w0.x, acc[0]);
+    acc[1] = fmaf(u, w0.y, acc[1]);
+    acc[2] = fmaf(u, w0.z, acc[2]);
+    acc[3] = fmaf(u, w0.w, acc[3]);
+    acc[4] = fmaf(u, w1.x, acc[4]);
+    acc[5] = fmaf(u, w1.y, acc[5]);
+    acc[6] = fmaf(u, w1.z, acc[6]);
+    acc[7] = fmaf(u, w1.w, acc[7]);
   }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) a[q] -= acc[q];
   __syncwarp();
 }
 

@@ -10,7 +10,8 @@ the first-order bias-correction Jacobians JRg/JVg/JVa/JPg/JPa
   closed form, so a window reduces as a binary tree of log2(N) batched
   levels of small matmuls, with one Newton polar step per composition and
   no SVD (nothing reads back to the host). A window padded to 64 samples
-  takes 6 levels.
+  takes 6 levels. `preintegrate_tree_batch` reduces E windows in the same
+  levels (the window BA's edges).
 - `preintegrate` is the per-sample recursion as a Python loop, one SVD
   re-orthonormalization a sample: the parity reference of the tree, on no
   live path.
@@ -280,6 +281,29 @@ def _compose_segments(s1: _Seg, s2: _Seg) -> _Seg:
                 JRg=JRg, JVg=JVg, JVa=JVa, JPg=JPg, JPa=JPa, n=s1.n + s2.n)
 
 
+def _pad_samples(n, *xs):
+    """Pad the sample axis (the second to last of gyro/acc, the last of
+    dts/mask) to the next power of two; padded samples are masked."""
+    n_pad = max(1, 1 << (n - 1).bit_length())
+    if n_pad == n:
+        return xs
+    pad = n_pad - n
+    gyro, acc, dts, maskf = xs
+    return (torch.nn.functional.pad(gyro, (0, 0, 0, pad)),
+            torch.nn.functional.pad(acc, (0, 0, 0, pad)),
+            torch.nn.functional.pad(dts, (0, pad)),
+            torch.nn.functional.pad(maskf, (0, pad)))
+
+
+def _reduce(seg: _Seg, n_out: int) -> _Seg:
+    """Compose adjacent pairs of a flat segment batch until `n_out` remain:
+    the windows are contiguous runs of a power-of-two length, so every pair
+    lies inside one window and all windows reduce in the same levels."""
+    while seg.dt.shape[0] > n_out:
+        seg = _compose_segments(_Seg(*(x[0::2] for x in seg)), _Seg(*(x[1::2] for x in seg)))
+    return seg
+
+
 def preintegrate_tree(gyro, acc, dts, mask, bg, ba, calib: ImuCalib) -> Preintegrated:
     """The tree reduction of `preintegrate`: the same result to f32
     rounding in log2(N) batched levels. Inputs as `preintegrate`'s (numpy
@@ -287,23 +311,38 @@ def preintegrate_tree(gyro, acc, dts, mask, bg, ba, calib: ImuCalib) -> Preinteg
     dev = calib.cov_noise.device
     gyro, acc, dts, maskf = (_as_f32(x, dev) for x in (gyro, acc, dts, mask))
     bg, ba = _as_f32(bg, dev), _as_f32(ba, dev)
+    gyro, acc, dts, maskf = _pad_samples(gyro.shape[0], gyro, acc, dts, maskf)
 
-    n = gyro.shape[0]
-    n_pad = max(1, 1 << (n - 1).bit_length())
-    if n_pad != n:
-        pad = n_pad - n
-        gyro = torch.nn.functional.pad(gyro, (0, 0, 0, pad))
-        acc = torch.nn.functional.pad(acc, (0, 0, 0, pad))
-        dts = torch.nn.functional.pad(dts, (0, pad))
-        maskf = torch.nn.functional.pad(maskf, (0, pad))
-
-    seg = _leaf_segments(gyro, acc, dts, maskf, bg, ba, calib)
-    while seg.dt.shape[0] > 1:
-        seg = _compose_segments(_Seg(*(x[0::2] for x in seg)), _Seg(*(x[1::2] for x in seg)))
+    seg = _reduce(_leaf_segments(gyro, acc, dts, maskf, bg, ba, calib), 1)
     seg = _Seg(*(x[0] for x in seg))
 
     C = torch.nn.functional.pad(seg.C9, (0, 6, 0, 6)) + torch.diag(
         torch.nn.functional.pad(seg.n * calib.cov_walk, (9, 0)))
+    return Preintegrated(dR=seg.dR, dV=seg.dV, dP=seg.dP, C=C, JRg=seg.JRg, JVg=seg.JVg,
+                         JVa=seg.JVa, JPg=seg.JPg, JPa=seg.JPa, dt=seg.dt, bg=bg, ba=ba)
+
+
+def preintegrate_tree_batch(gyro, acc, dts, mask, bg, ba, calib: ImuCalib) -> Preintegrated:
+    """`preintegrate_tree` over a leading axis of E windows, each at its own
+    linearization bias (the JAX package's `Problems._preint_batch`, a vmap
+    of the tree): gyro, acc [E, N, 3], dts, mask [E, N], bg, ba [E, 3] ->
+    a Preintegrated with a leading E axis. The E x N samples form one flat
+    segment batch, so all windows reduce together in log2(N) levels (the
+    launches do not grow with E)."""
+    dev = calib.cov_noise.device
+    gyro, acc, dts, maskf = (_as_f32(x, dev) for x in (gyro, acc, dts, mask))
+    bg, ba = _as_f32(bg, dev), _as_f32(ba, dev)
+    E = gyro.shape[0]
+    gyro, acc, dts, maskf = _pad_samples(gyro.shape[1], gyro, acc, dts, maskf)
+    N = gyro.shape[1]
+
+    seg = _leaf_segments(gyro.reshape(E * N, 3), acc.reshape(E * N, 3), dts.reshape(E * N),
+                         maskf.reshape(E * N), bg.repeat_interleave(N, 0),
+                         ba.repeat_interleave(N, 0), calib)
+    seg = _reduce(seg, E)
+
+    C = torch.nn.functional.pad(seg.C9, (0, 6, 0, 6)) + torch.diag_embed(
+        torch.nn.functional.pad(seg.n[:, None] * calib.cov_walk, (9, 0)))
     return Preintegrated(dR=seg.dR, dV=seg.dV, dP=seg.dP, C=C, JRg=seg.JRg, JVg=seg.JVg,
                          JVa=seg.JVa, JPg=seg.JPg, JPa=seg.JPa, dt=seg.dt, bg=bg, ba=ba)
 

@@ -288,6 +288,35 @@ def test_chol_grid_route_not_spd_1000(cuda, kind):
         assert float((x[g].double() - ref).norm() / ref.norm()) < 1e-5
 
 
+@pytest.mark.gpu
+def test_chol_grid_route_on_the_store_polish(cuda):
+    """K4's large-D route on the reduced systems of the full polish built
+    from the seeded 96-keyframe map store (D = 1440, condition ~9e4, dense
+    inertial and visual coupling): within max(1e-5, 2 x the plain
+    version's error) of float64, as chip_smoke.py holds it. Before a
+    panel's products were summed first, tiny far-panel products were
+    rounded away one by one and the solve landed 2e-3 from float64 (the
+    plain version: 7e-6)."""
+    import chip_smoke as cs
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.backend.problems import Problems
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer, ImuCalib
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import chol_pallas as cp
+
+    cam = config.build_camera(config.load_settings(cs.SETTINGS / cs.EUROC_PROFILE), device=cuda)
+    pr = Problems(cam, cs.store_calibration(ImuCalib, device=cuda), device=cuda)
+    store, _ = cs.seeded_store(MapStore, ImuBuffer)
+    with cs._Capture(cp, "chol_solve_cuda", maxlen=3) as cap:
+        pr.full_inertial_optimize(store)
+    assert cap.n == 12
+    for S, b in cap.calls:
+        ref = torch.linalg.solve(S.double(), b.double())
+        err = float(cs._rel(cp.chol_solve_l2(S, b), ref).max())
+        err_plain = float(cs._rel(cp.chol_solve_plain(S, b), ref).max())
+        assert err <= max(1e-5, 2.0 * err_plain), (err, err_plain)
+
+
 # ---------------------------------------------------------------------------
 # The inertial stage on the card (plain torch, no hand kernel): the same
 # functions on the CPU are its reference

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from monoorbslam3_tpu_torch import bench_window, config, convert
-from monoorbslam3_tpu_torch.backend.problems import _identity_edge
+from monoorbslam3_tpu_torch.backend.problems import Problems, _identity_edge
 from monoorbslam3_tpu_torch.backend.residuals import KfState
 from monoorbslam3_tpu_torch.models.camera import Fisheye, Pinhole
 from monoorbslam3_tpu_torch.models.imu import ImuCalib
@@ -25,6 +25,7 @@ ENTRY_POINTS = {
     "config.build_camera": config.build_camera,
     "config.build_imu_calib": config.build_imu_calib,
     "bench_window.build_problem": bench_window.build_problem,
+    "Problems": Problems.__init__,
     **{f"convert.{n}": getattr(convert, n)
        for n in ("desc_to_torch", "tensor", "pinhole", "kf_state", "preint_edge", "ba_problem")},
 }
@@ -58,7 +59,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                          dist=[0.0, 0.0, 0.0, 0.0], width=96, height=64, **kw),
              lambda **kw: ImuCalib.create(np.eye(3), np.zeros(3), 1e-4, 1e-3, 1e-5, 1e-3, **kw),
              lambda **kw: config.build_camera(config.load_settings(TUM_VI), **kw),
-             lambda **kw: config.build_imu_calib(config.load_settings(TUM_VI), **kw)]
+             lambda **kw: config.build_imu_calib(config.load_settings(TUM_VI), **kw),
+             lambda **kw: Problems(
+                 Pinhole.create(fx=100.0, fy=100.0, cx=48.0, cy=32.0, width=96, height=64,
+                                device="cpu"),
+                 ImuCalib.create(np.eye(3), np.zeros(3), 1e-4, 1e-3, 1e-5, 1e-3, device="cpu"),
+                 **kw)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()

@@ -46,7 +46,7 @@ R_BC = np.stack([_x_c, np.cross(_z_c, _x_c), _z_c], axis=1)
 T_BC = np.array([0.03, 0.01, -0.02])
 R_CB = R_BC.T.astype(np.float32)
 T_CB = (-R_BC.T @ T_BC).astype(np.float32)
-BG_TRUE = np.array([0.004, -0.003, 0.002])  # tests/test_e2e_synthetic.py:42-43
+BG_TRUE = np.array([0.004, -0.003, 0.002])  # chip_smoke.BG_TRUE, the inertial drive's bias
 BA_TRUE = np.array([0.03, -0.02, 0.05])
 T_KF, T_FR = 0.0, 0.25
 N_PTS = 300
