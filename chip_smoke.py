@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's seven paths, each with the kernel launch counts set to 0 just before
+port's eight paths, each with the kernel launch counts set to 0 just before
 it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -36,7 +36,17 @@ it and read just after:
    (K4's cluster route, 8 launches each) and `full_inertial_optimize`
    (hybrid: the grouped K = 96 problem with merged IMU windows; K4's
    large-D route, 12 launches), each held to the JAX package's run of the
-   same calls on the same store.
+   same calls on the same store;
+8. track map: the system's main loop, the port's `Tracking` and
+   `LocalMapping` wired in sync mode over 100 rendered EuRoC-size frames
+   (5 s) with IMU between them: extraction, the two-view bootstrap, the
+   coarse and local stages, a keyframe every ~0.25 s, each one's mapper
+   step (window BAs, triangulation and fuse searches, the inertial init and
+   its full polish), every capacity at its default (K1, K2, K3, K4's
+   cluster route), held to the JAX package's `System` on the same stream
+   (`experiments/port_track_map_jax.py`): bootstrap, OK ratio, init time,
+   keyframe ATE, keyframe and point counts, fetches a frame and a mapper
+   step, and 0 host syncs inside every stage and BA solve.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -74,7 +84,8 @@ even once, when the card's preintegration or whitening leaves the same
 functions on the CPU, or when the polish path's solves launch anything
 but K4's large-D route, or when a store BA call leaves the JAX
 package's costs, outliers, init recovery or polish ATE, syncs inside its
-solve or fetches more than its count. Prints, before the last line, the
+solve or fetches more than its count, or when the track map misses a gate
+of `track_map_checks`. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -246,6 +257,43 @@ STORE_ITERS = {"local_bundle_adjustment": 8, "local_full_bundle_adjustment": 8,
 PATHOLOGICAL_COST0 = 1e6
 STORE_SCALE_RTOL, STORE_GRAVITY_DEG, STORE_BG_TOL = 1e-3, 0.05, 1e-5
 STORE_OUTLIER_RTOL, STORE_ATE_FACTOR = 0.02, 1.5
+
+# track map: the system's main loop, `Tracking` and `LocalMapping` wired in
+# sync mode (tracking.new_kf_callback = mapper.process, as
+# System._on_new_kf wires them) over rendered EuRoC-size frames of the
+# ImageWorld circle (the EuRoC profile's camera, 20 fps, the frame noise of
+# the drives) with IMU samples between them at the profile's rate and noise
+# densities and the bias of tests/test_e2e_synthetic.py:42-43
+# (STORE_BG_TRUE, STORE_BA_TRUE), from a seeded generator. The tracker and
+# mapper knobs of tests/test_e2e_image.py:34-37; every capacity at its
+# default (local_k 32, local_p 2048, local_o 6144, full_k 96,
+# local_pt_cap 4096); the extractor of the drives (1024 features, 8
+# levels, scale 1.2); no vocabulary
+TRACK_MAP_FRAMES = 100
+TRACK_MAP_IMU_SEED = 9
+TRACK_MAP_CONFIG = dict(init_min_features=100, init_min_matches=60, imu_init_kfs=10,
+                        max_pt=16384, kf_max_interval=0.25, kf_tracked_ratio=0.85)
+TRACK_MAP_MAX_KF = 512  # System's default store capacity
+# the JAX package's run of the same stream through its System in sync mode
+# on the CPU (experiments/port_track_map_jax.py; PERF.md records the run):
+# bootstrap at frame 2, every frame after it OK, the inertial init at frame
+# 49 (2.45 s), keyframe ATE 2.594 mm (scale-aligned), 21 keyframes, 1,993
+# points; 3 fetches every tracked frame, 6-10 a mapper step (p50 8). Its
+# session stays within local_k keyframes, so the full polish after the init
+# solves the regular window (K4's cluster route); the large-D route is off
+# this path (store_ba drives it)
+JAX_TRACK_MAP = dict(bootstrap_frame=2, ok_ratio=1.0, imu_state=1, imu_init_t=2.45,
+                     kf_ate_m=0.0025941003731369066, n_kf=21, n_points=1993,
+                     fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+                     fetches_per_mapper_step=dict(p50=8.0, mean=7.2631578947368425, max=10.0))
+# the gates: bootstrap at most 5 frames after JAX's (the RANSAC draws
+# differ), no LOST frame, the OK ratio after the bootstrap at least 0.9
+# (tests/test_e2e_image.py:66-68) and at least JAX's less 0.05, the
+# inertial init when JAX's fires and at most 1 s of stream time after it,
+# the keyframe ATE at most twice JAX's and below tests/test_e2e_image.py's
+# 10 cm, keyframes and points within 30% of JAX's
+TM_BOOT_SLACK, TM_OK_MIN, TM_OK_SLACK, TM_INIT_SLACK_S = 5, 0.9, 0.05, 1.0
+TM_ATE_FACTOR, TM_ATE_MAX_M, TM_COUNT_RTOL = 2.0, 0.10, 0.30
 
 
 # K4 phase: seeded systems beside the BA's own (D = 465 is ragged, K = 31;
@@ -828,6 +876,95 @@ def _angle_deg(a, b):
     return float(np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b)), a @ b)))
 
 
+def track_map_stream(world, camera, n_frames):
+    """The track-map stream: yields (i, t, image, imu) for frame i at
+    t = i / FPS, `world` (either package's ImageWorld) rendered through
+    `camera` (that package's host camera of the EuRoC profile) with the
+    drives' frame noise, and `imu` the rows (t, gyro, acc) of the samples
+    since the previous frame (None for the first), as
+    tests/test_e2e_image.py feeds `System.track`."""
+    imu_node = _store_profile()[-1]
+    freq = float(imu_node["Frequency"])
+    noise = dict(noise_gyro=float(imu_node["NoiseGyro"]), noise_acc=float(imu_node["NoiseAcc"]))
+    rng = np.random.default_rng(TRACK_MAP_IMU_SEED)
+    last_t = 0.0
+    for i in range(n_frames):
+        t = i / FPS
+        img = world.render(t, camera, R_BC, T_BC, rng=np.random.default_rng(i))
+        imu = None
+        if i:
+            g, a, d = world.traj.imu_samples(last_t, t, freq, bg=STORE_BG_TRUE, ba=STORE_BA_TRUE,
+                                             rng=rng, **noise)
+            ts = last_t + np.cumsum(d)
+            imu = np.concatenate([ts[:, None], g, a], axis=1)
+        yield i, t, img, imu
+        last_t = t
+
+
+class MapperMeter:
+    """Stands between the tracker's keyframe hook and `process` (a
+    mapper's): runs each step, then `sync`, and records its frame, keyframe,
+    host milliseconds, the fetches `count()` saw during it and the host
+    syncs `syncs()` saw."""
+
+    def __init__(self, process, count, sync=lambda: None, syncs=lambda: 0):
+        self.process, self.count, self.sync, self.syncs = process, count, sync, syncs
+        self.steps = []
+        self.frame = -1
+
+    def __call__(self, k, initial=False, light=False):
+        n0, y0, t0 = self.count(), self.syncs(), time.perf_counter()
+        self.process(k, initial=initial, light=light)
+        self.sync()
+        self.steps.append(dict(frame=self.frame, kf=int(k), initial=bool(initial),
+                               host_ms=1e3 * (time.perf_counter() - t0),
+                               fetches=self.count() - n0, syncs=self.syncs() - y0))
+
+
+def track_map_summary(records, steps, store, traj, umeyama):
+    """The track-map run's summary from its per-frame records (state,
+    n_tracked, imu_state, frame_ms and fetches without the mapper's), its
+    mapper steps (`MapperMeter.steps`), the store and the trajectory;
+    `umeyama` is either package's `umeyama_align`. The keyframe ATE aligns
+    the keyframe body positions to the truth with scale, as
+    tests/test_e2e_image.py:81-98 does."""
+    states = np.asarray([r["state"] for r in records])
+    ok = states == 2
+    boot = int(np.argmax(ok)) if ok.any() else None
+    after = states[boot:] if boot is not None else states[:0]
+    init = [r["frame"] for r in records if r["imu_state"] >= 1]
+    tracked = [r for r in records[boot + 1:] if r["state"] == 2] if boot is not None else []
+    ids = store.keyframe_ids()
+    kt = np.asarray([store.kf_time[k] for k in ids])
+    kp = np.stack([store.kf_t[k] for k in ids]).astype(np.float64)
+    gt = traj.pos(kt)
+    s, R, t = umeyama(kp, gt)
+    err = np.linalg.norm((s * kp @ R.T + t) - gt, axis=1)
+    regular = [m for m in steps if not m["initial"]]
+
+    def stats(xs):
+        xs = np.asarray(xs, np.float64)
+        if not len(xs):
+            return None
+        return dict(p50=float(np.percentile(xs, 50)), p99=float(np.percentile(xs, 99)),
+                    mean=float(xs.mean()), max=float(xs.max()))
+
+    return dict(
+        n_frames=len(records), bootstrap_frame=boot,
+        ok_ratio=float((after == 2).mean()) if len(after) else 0.0,
+        n_lost=int((states == 4).sum()), imu_state=int(records[-1]["imu_state"]),
+        imu_init_frame=init[0] if init else None,
+        imu_init_t=init[0] / FPS if init else None,
+        kf_ate_m=float(np.sqrt((err ** 2).mean())), kf_ate_scale=float(s),
+        n_kf=len(ids), kf_created=int(store.kf_created_total), n_points=int(store.n_points()),
+        n_mapper_steps=len(regular),
+        fetches_per_tracked_frame=stats([r["fetches"] for r in tracked]),
+        fetches_per_mapper_step=stats([m["fetches"] for m in regular]),
+        frame_ms=stats([r["frame_ms"] for r in tracked]),
+        mapper_ms=stats([m["host_ms"] for m in regular]),
+        n_tracked=stats([r["n_tracked"] for r in tracked]))
+
+
 def store_calls(store):
     """The store BA sequence of `Problems` calls, each (name, fn(problems,
     store)), at the mapper's defaults (window 10, 8 iterations; the polish
@@ -974,6 +1111,203 @@ def store_ba(device, n_runs=5, log=print):
         calls[name] = rec
         log(json.dumps({"store_ba": name} | {k: v for k, v in rec.items()}))
     return dict(init=init, calls=calls, systems=systems)
+
+
+class SyncLedger:
+    """Records, over a whole run, every host sync that PyTorch's sync debug
+    mode reports (nothing off the card), and attributes them to nested
+    regions: `with ledger.region(name):` adds the syncs made inside it to
+    `counts[name]` (the region's own and its inner regions')."""
+
+    def __init__(self, on_card):
+        self.on_card = on_card
+        self.caught = []
+        self.counts = collections.Counter()
+        self.sites = collections.Counter()
+
+    def n(self):
+        return sum("called a synchronizing" in str(w.message) for w in self.caught)
+
+    @contextlib.contextmanager
+    def recording(self):
+        if not self.on_card:
+            yield self
+            return
+        import torch
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            self.caught = caught
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:
+            if "called a synchronizing" in str(w.message):
+                self.sites[f"{w.filename}:{w.lineno}"] += 1
+
+    @contextlib.contextmanager
+    def region(self, name):
+        n0 = self.n()
+        try:
+            yield
+        finally:
+            self.counts[name] += self.n() - n0
+
+    def wrap(self, module, attr, name):
+        """Replace module.attr by a wrapper that runs it inside region
+        `name`; returns a function that puts the original back."""
+        orig = getattr(module, attr)
+
+        def wrapped(*args, **kwargs):
+            with self.region(name):
+                return orig(*args, **kwargs)
+
+        setattr(module, attr, wrapped)
+        return lambda: setattr(module, attr, orig)
+
+
+# the device work of the track-map path with no host read of its own: the
+# two tracking stages, the window BA solve, the mapper's two searches, the
+# IMU window preintegration, and the two-view bootstrap (whose batched SVDs
+# do read back: counted, not held to 0)
+TRACK_MAP_REGIONS = (("frontend.tracking", "_coarse_track_kernel", "coarse stage"),
+                     ("frontend.tracking", "_local_track_kernel", "local stage"),
+                     ("backend.problems", "schur_ba", "BA solve"),
+                     ("frontend.local_mapping", "_triangulate_pair_kernel", "triangulate"),
+                     ("frontend.local_mapping", "_fuse_project_kernel", "fuse"),
+                     ("models.imu", "preintegrate_tree", "preintegration"),
+                     ("frontend.tracking", "reconstruct_two_views", "two-view bootstrap"))
+
+
+def track_map(pipe, n_frames=TRACK_MAP_FRAMES, log=print):
+    """The track-map path on `pipe`'s device: the port's `Tracking` and
+    `LocalMapping` wired in sync mode (the tracker's keyframe hook runs
+    `mapper.process` through a `MapperMeter`) over `track_map_stream`:
+    each frame extracted by `pipe.ext`, finished on the device and handed
+    to `Tracking.track_feats` with its IMU rows. The store, the `Problems`
+    façade (every capacity at its default) and the calibration (the rig's
+    extrinsics, the EuRoC profile's noise) are built here; the façade's
+    warm-up runs before the launch counts are set to 0.
+
+    Per frame: the state, n_tracked, the IMU state, the host time of the
+    extraction plus `track_feats` without the mapper's steps, the fetches
+    and host syncs (sync debug mode, `SyncLedger`) without the mapper's;
+    per mapper step its host time and fetches. Syncs are attributed to the
+    regions of TRACK_MAP_REGIONS. Returns (records, mapper steps, summary)."""
+    import importlib
+
+    import torch
+
+    from monoorbslam3_tpu_torch.backend.problems import Problems
+    from monoorbslam3_tpu_torch.evaluation.ate import umeyama_align
+    from monoorbslam3_tpu_torch.frontend.frame import finish_features
+    from monoorbslam3_tpu_torch.frontend.local_mapping import LocalMapping
+    from monoorbslam3_tpu_torch.frontend.tracking import Tracking
+    from monoorbslam3_tpu_torch.models.imu import ImuCalib
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import cuda_lib
+    from monoorbslam3_tpu_torch.sim import ImageWorld
+
+    dev = pipe.dev
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = dict(TRACK_MAP_CONFIG, n_features=N_FEAT, scale_factors=pipe.ext.scale_factors)
+    store = MapStore(max_kf=TRACK_MAP_MAX_KF, max_pt=cfg["max_pt"], n_feat=N_FEAT)
+    problems = Problems(pipe.cam, store_calibration(ImuCalib, device=dev), device=dev)
+    tracker = Tracking(pipe.cam, problems.calib, store, problems, cfg)
+    mapper = LocalMapping(store, problems, problems.calib, tracker, cfg)
+    ledger = SyncLedger(on_card)
+    meter = MapperMeter(mapper.process, lambda: problems.syncs.n, sync, ledger.n)
+    tracker.new_kf_callback = meter  # System._on_new_kf in sync mode
+    problems.warm_solvers()
+    world = ImageWorld()
+    host_cam = host_camera(pipe.profile)
+    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
+               for m, attr, name in TRACK_MAP_REGIONS]
+    records, sync_sites = [], collections.Counter()
+    _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
+    try:
+        with ledger.recording():
+            for i, t, img, imu in track_map_stream(world, host_cam, n_frames):
+                meter.frame = i
+                n_steps, n0, s0 = len(meter.steps), problems.syncs.n, ledger.n()
+                m0 = dict(ledger.counts)
+                t0 = time.perf_counter()
+                feats = finish_features(pipe.ext(pipe._up(img)), pipe.cam, pipe.ext.scale_factors)
+                feats["group"] = None  # no vocabulary
+                state, frame = tracker.track_feats(t, feats, imu)
+                sync()
+                dt = 1e3 * (time.perf_counter() - t0)
+                mine = meter.steps[n_steps:]
+                step_syncs = sum(m["syncs"] for m in mine)
+                rec = dict(frame=i, t=t, state=int(state), n_tracked=int(frame.n_tracked),
+                           imu_state=int(mapper.imu_state),
+                           frame_ms=dt - sum(m["host_ms"] for m in mine),
+                           fetches=problems.syncs.n - n0 - sum(m["fetches"] for m in mine),
+                           syncs=ledger.n() - s0 - step_syncs,
+                           regions={k: v - m0.get(k, 0) for k, v in ledger.counts.items()
+                                    if v - m0.get(k, 0)},
+                           n_kf=store.n_keyframes(), n_points=int(store.n_points()))
+                records.append(rec)
+                log(json.dumps(rec))
+                for m in mine:
+                    log(json.dumps({"mapper_step": m}))
+    finally:
+        for r in restore:
+            r()
+    summary = track_map_summary(records, meter.steps, store, world.traj, umeyama_align)
+    summary["launches"] = dict(cuda_lib.launches)
+    summary["region_syncs"] = dict(ledger.counts)
+    summary["sync_sites"] = dict(ledger.sites)
+    return records, meter.steps, summary
+
+
+def track_map_checks(tm, records, steps, on_card=True):
+    """The track-map gates on a `track_map` run against JAX_TRACK_MAP (the
+    fetch and sync gates only on the card, where fetches and syncs are
+    counted). Returns the failures."""
+    ref, fails = JAX_TRACK_MAP, []
+    boot = tm["bootstrap_frame"]
+    if boot is None or boot > ref["bootstrap_frame"] + TM_BOOT_SLACK:
+        fails.append(f"track map: bootstrap at frame {boot}, JAX's at {ref['bootstrap_frame']}")
+    if tm["n_lost"]:
+        fails.append(f"track map: {tm['n_lost']} LOST frames")
+    ok_min = max(TM_OK_MIN, ref["ok_ratio"] - TM_OK_SLACK)
+    if not tm["ok_ratio"] >= ok_min:
+        fails.append(f"track map: OK ratio {tm['ok_ratio']} < {ok_min}")
+    if ref["imu_state"] >= 1:
+        if tm["imu_state"] < 1:
+            fails.append("track map: the inertial init never fired")
+        elif tm["imu_init_t"] > ref["imu_init_t"] + TM_INIT_SLACK_S:
+            fails.append(f"track map: inertial init at {tm['imu_init_t']} s, JAX's at "
+                         f"{ref['imu_init_t']} s")
+    ate_max = min(TM_ATE_FACTOR * ref["kf_ate_m"], TM_ATE_MAX_M)
+    if not tm["kf_ate_m"] <= ate_max:
+        fails.append(f"track map: keyframe ATE {tm['kf_ate_m']} m > {ate_max} m")
+    for key in ("n_kf", "n_points"):
+        if abs(tm[key] - ref[key]) > TM_COUNT_RTOL * ref[key]:
+            fails.append(f"track map: {key} {tm[key]}, JAX's {ref[key]}")
+    if not on_card:
+        return fails
+    for key in ("fetches_per_tracked_frame", "fetches_per_mapper_step"):
+        got, lim = tm[key], ref[key]
+        if got is None or got["max"] > lim["max"] or got["p50"] > lim["p50"]:
+            fails.append(f"track map: {key} {got}, JAX's {lim}")
+    for name, n in tm["region_syncs"].items():
+        if n and name != "two-view bootstrap":
+            fails.append(f"track map: {n} host syncs inside the {name}")
+    after = records[boot + 1:] if boot is not None else []
+    for r in after:
+        if r["state"] == 2 and r["syncs"] > r["fetches"]:
+            fails.append(f"track map: frame {r['frame']} synced {r['syncs']} times for "
+                         f"{r['fetches']} fetches")
+    for m in steps:
+        if m["syncs"] > m["fetches"]:
+            fails.append(f"track map: the mapper step of KF {m['kf']} synced {m['syncs']} "
+                         f"times for {m['fetches']} fetches")
+    return fails
 
 
 class SyncWatch:
@@ -1864,6 +2198,49 @@ def main(argv=None) -> int:
               f"{_pct(r['wall_ms'], 75):.2f}); keyframe ATE {r['ate_before_m']:.5f} -> "
               f"{r['ate_after_m']:.5f} m")
 
+    # -- path 8, track map: Tracking and LocalMapping over rendered frames ----
+    # (track_map sets the counts to 0 itself, after the façade's warm-up)
+    t0 = time.perf_counter()
+    with _Capture(match_pallas, "_match_rows_cuda") as tm_k2, \
+            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as tm_k3, \
+            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as tm_k1, \
+            _Capture(chol_pallas, "chol_solve_cuda", maxlen=8) as tm_k4:
+        tm_records, tm_steps, tm = track_map(pipe, log=lambda line: None)
+    torch.cuda.synchronize()
+    tm_s = time.perf_counter() - t0
+    tm_launches = tm["launches"]
+    print(f"track map: {len(tm_records)} frames in {tm_s:.1f} s host; launches "
+          f"{json.dumps(tm_launches)}")
+    print("track map states:", "".join(str(r["state"]) for r in tm_records))
+    print("track map n_tracked:", [r["n_tracked"] for r in tm_records])
+    print("track map frame ms:", [round(r["frame_ms"], 1) for r in tm_records])
+    print("track map fetches / syncs a frame:", [(r["fetches"], r["syncs"]) for r in tm_records])
+    print("track map mapper steps (frame, KF, ms, fetches, syncs):",
+          [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+           for m in tm_steps])
+    print("track map summary:", json.dumps(tm))
+    print(f"track map against the JAX package on the CPU: {json.dumps(JAX_TRACK_MAP)}")
+    print(f"track map timing ({card}): frame p50 {tm['frame_ms']['p50']:.1f} ms, p99 "
+          f"{tm['frame_ms']['p99']:.1f} ms; mapper step p50 {tm['mapper_ms']['p50']:.1f} ms, "
+          f"mean {tm['mapper_ms']['mean']:.1f} ms per keyframe")
+    for label, a in zip(K2_CALLS, tm_k2.calls):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 track map {label}")
+    for a in tm_k3.calls:
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError("K3 on the track map's searches disagrees with its plain version")
+    for a in tm_k1.calls:
+        got = pallas_kernels.gather_patches_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+            raise RuntimeError("K1 on the track map's last frame disagrees with its plain version")
+    print(f"track map: K2 on the last frame's {len(tm_k2.calls)} launches, K3 on the last "
+          f"{len(tm_k3.calls)} searches, K1 on the last frame: bit-identical; K4's last "
+          f"{len(tm_k4.calls)} reduced systems join the K4 phase")
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -1942,6 +2319,7 @@ def main(argv=None) -> int:
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:80",
                         launches=launches["gather_patches"],
                         launches_vi_drive=vi_launches["gather_patches"],
+                        launches_track_map=tm_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -2008,6 +2386,7 @@ def main(argv=None) -> int:
                         replaces="monoorbslam3_tpu/ops/match_pallas.py:43",
                         launches=launches["match_rows"],
                         launches_vi_drive=vi_launches["match_rows"],
+                        launches_track_map=tm_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -2059,6 +2438,7 @@ def main(argv=None) -> int:
                         replaces="monoorbslam3_tpu/ops/pallas_kernels.py:28",
                         launches=map_launches["hamming"],
                         launches_fisheye_search=fish_launches["hamming"],
+                        launches_track_map=tm_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -2078,7 +2458,8 @@ def main(argv=None) -> int:
                "polish G=1": polish["polish_deferred"]["systems"],
                "polish G=2": polish["polish_parallel"]["systems"],
                "store local G=1": sba["systems"]["local_full_bundle_adjustment"],
-               "store polish G=1": sba["systems"]["full_inertial_optimize"], **seeded}
+               "store polish G=1": sba["systems"]["full_inertial_optimize"],
+               "track map G=1": list(tm_k4.calls), **seeded}
     route_launches = {}
     for label, items in systems.items():
         e64, ep, epl64 = 0.0, 0.0, 0.0
@@ -2195,6 +2576,7 @@ def main(argv=None) -> int:
     kernels.append(dict(name="chol_solve", **k4_common,
                         launches=ba_launches["chol_solve"],
                         launches_store_ba=store_launches["chol_solve"],
+                        launches_track_map=tm_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -2206,6 +2588,7 @@ def main(argv=None) -> int:
     kernels.append(dict(name="chol_solve_l2", **k4_common,
                         launches=polish_launches["chol_solve_l2"],
                         launches_store_ba=store_launches["chol_solve_l2"],
+                        launches_track_map=tm_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -2254,7 +2637,11 @@ def main(argv=None) -> int:
                             ("window BA", "chol_solve", ba_launches),
                             ("polish BA", "chol_solve_l2", polish_launches),
                             ("store BA", "chol_solve", store_launches),
-                            ("store BA", "chol_solve_l2", store_launches)):
+                            ("store BA", "chol_solve_l2", store_launches),
+                            ("track map", "gather_patches", tm_launches),
+                            ("track map", "match_rows", tm_launches),
+                            ("track map", "hamming", tm_launches),
+                            ("track map", "chol_solve", tm_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2268,6 +2655,7 @@ def main(argv=None) -> int:
     if ba_launches["chol_solve_l2"]:
         failures.append("window BA: K4's large-D route ran on the D = 480 systems")
     failures += store_checks(sba)
+    failures += track_map_checks(tm, tm_records, tm_steps)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

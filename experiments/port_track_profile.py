@@ -18,8 +18,17 @@ time (these launch too many kernels to be timed behind a sleep).
 of each inertial piece on the CPU, the proxy for its launches that the
 inertial path's predictions were made with.
 
+`--track-map` profiles chip_smoke's track-map path instead (the port's
+`Tracking` and `LocalMapping` in sync mode over the rendered stream): each
+of the tracked frames `--frame` .. `--frame` + 4 under its own profiler
+(extraction, `track_feats`; a frame whose keyframe ran a mapper step is
+reported apart), and the `--step`-th regular mapper step (`process`).
+For each: kernel launches, device busy, host wall time and the idle share,
+and the kernels that take the most device time.
+
     python experiments/port_track_profile.py [--frames 10] [--inertial]
     python experiments/port_track_profile.py --cpu-ops
+    python experiments/port_track_profile.py --track-map [--frame 70] [--step 10]
 """
 
 from __future__ import annotations
@@ -60,12 +69,20 @@ def main():
                     help="the visual-inertial drive, and the inertial pieces' launches")
     ap.add_argument("--cpu-ops", action="store_true",
                     help="only the inertial pieces' aten operations on the CPU (no card)")
+    ap.add_argument("--track-map", action="store_true",
+                    help="the track-map path: tracked frames and a mapper step")
+    ap.add_argument("--frame", type=int, default=70,
+                    help="--track-map: the first of the five profiled frames")
+    ap.add_argument("--step", type=int, default=10,
+                    help="--track-map: the regular mapper step profiled (1 = the first)")
     args = ap.parse_args()
     if args.cpu_ops:
         return cpu_ops()
     if not torch.cuda.is_available():
         sys.exit("port_track_profile: needs a CUDA device")
     print(torch.cuda.get_device_name(0))
+    if args.track_map:
+        return track_map_profile(args.frame, args.step, args.top)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = []
 
@@ -107,6 +124,76 @@ def main():
         print(f"   device {_dev_us(e) / 1e3 / n:9.4f} ms a frame  x{e.count / n:6.1f}  {e.key[:90]}")
     if args.inertial:
         inertial_pieces(pipe, lm_cap)
+
+
+def _summary(prof, host_ms, top):
+    """Launches, device busy, idle share and the top kernels of one profiled
+    window of `host_ms` of host time."""
+    ka = prof.key_averages()
+    launches = sum(e.count for e in ka if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    kern = sorted(device_rows(ka), key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in kern) / 1e3
+    return dict(launches=launches, device_busy_ms=busy, host_ms=host_ms,
+                idle_share=1.0 - busy / host_ms,
+                top=[(e.key[:70], round(_dev_us(e) / 1e3, 4), e.count) for e in kern[:top]])
+
+
+def track_map_profile(frame_at, step_at, top):
+    """Profile five tracked frames and one regular mapper step of
+    chip_smoke's track-map path (see the module docstring)."""
+    import time
+
+    from monoorbslam3_tpu_torch.frontend.local_mapping import LocalMapping
+
+    frames, out = {}, {}
+    current = {}
+
+    def log(line):
+        rec = json.loads(line)
+        if "mapper_step" in rec:
+            return
+        i = rec["frame"]
+        if i in frames:
+            torch.cuda.synchronize()
+            frames[i].stop()
+            out[f"frame {i}"] = dict(state=rec["state"], n_tracked=rec["n_tracked"],
+                                     keyframe=rec["n_kf"] != current.get("n_kf", rec["n_kf"]))
+            out[f"frame {i}"].update(_summary(frames[i], rec["frame_ms"], top))
+        current["n_kf"] = rec["n_kf"]
+        if frame_at - 1 <= i < frame_at + 4:
+            torch.cuda.synchronize()
+            frames[i + 1] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            frames[i + 1].start()
+
+    orig = LocalMapping.process
+    calls = [0]
+
+    def process(self, k, initial=False, light=False):
+        if not initial:
+            calls[0] += 1
+        if initial or calls[0] != step_at:
+            return orig(self, k, initial=initial, light=light)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            orig(self, k, initial=initial, light=light)
+            torch.cuda.synchronize()
+        out[f"mapper step {step_at} (KF {k}, imu_state {self.imu_state})"] = _summary(
+            p, 1e3 * (time.perf_counter() - t0), top)
+
+    pipe = cs.TorchPipe("cuda")
+    pipe.features(torch.zeros((pipe.cam.height, pipe.cam.width)).numpy())
+    # the tracer's first start takes seconds: not inside a measured window
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    LocalMapping.process = process
+    try:
+        cs.track_map(pipe, n_frames=frame_at + 5, log=log)
+    finally:
+        LocalMapping.process = orig
+    for name, rec in out.items():
+        print(name, json.dumps(rec))
 
 
 def profile_call(fn):

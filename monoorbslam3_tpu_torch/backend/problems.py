@@ -1420,6 +1420,16 @@ def _upload_arrays(arrays, device: torch.device) -> list:
     return out
 
 
+def upload_inputs(arrays, device: torch.device) -> list:
+    """A stage's host inputs -> tensors on `device` (`_upload_arrays`: one
+    pinned copy per kind, no host wait), uint32 descriptors as their int32
+    view and every integer array as int32, the dtypes the stages take."""
+    host = [np.asarray(a) for a in arrays]
+    up = _upload_arrays([a.view(np.int32) if a.dtype == np.uint32 else a for a in host], device)
+    return [t.to(torch.int32) if np.issubdtype(a.dtype, np.integer) else t
+            for a, t in zip(host, up)]
+
+
 def _upload_problem(host: BAProblem, device: torch.device) -> BAProblem:
     """A numpy BAProblem (prior_ref is its kf) -> the same problem on
     `device`, in three copies (`_upload_arrays`)."""

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from . import fast as fast_ops
 from . import image as image_ops
 from . import pallas_kernels
-from ..utils.device import CARD, resolve
+from ..utils.device import CARD, constant, resolve
 
 PATCH = 48  # gathered patch size (square)
 HALF = PATCH // 2
@@ -85,7 +85,9 @@ def _blur_matrix(ksize: int = 7, sigma: float = 2.0):
 def ic_angles(patches_raw: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch (reference IC_Angle,
     ORBExtractor.cpp:18-48). [K, PATCH, PATCH] -> [K] radians."""
-    wx, wy = (torch.as_tensor(a, device=patches_raw.device) for a in _ic_angle_weights())
+    dev = patches_raw.device
+    wx = constant("orb.ic_wx", dev, lambda: _ic_angle_weights()[0])
+    wy = constant("orb.ic_wy", dev, lambda: _ic_angle_weights()[1])
     c, r = HALF, ORI_RADIUS
     sub = patches_raw[:, c - r: c + r + 1, c - r: c + r + 1].reshape(-1, (2 * r + 1) ** 2)
     m10 = sub @ wx.reshape(-1)
@@ -97,7 +99,7 @@ def blur_patches(patches: torch.Tensor) -> torch.Tensor:
     """7x7 sigma-2 Gaussian blur of a [K, PATCH, PATCH] stack as G @ P @ G^T
     (the BRIEF sample extent plus the kernel radius stays inside the patch,
     so sampled values equal the whole-image blur)."""
-    G = torch.as_tensor(_blur_matrix(), device=patches.device)
+    G = constant("orb.blur", patches.device, _blur_matrix)
     return G @ patches @ G.T
 
 
@@ -117,8 +119,7 @@ def brief_descriptors(patches_blur: torch.Tensor, angles: torch.Tensor) -> torch
     angles: [K] -> [K, 8] int32 (256 bits packed little-endian per word)."""
     K = patches_blur.shape[0]
     dev = patches_blur.device
-    pa, pb = brief_pattern()
-    pts = torch.as_tensor(np.concatenate([pa, pb], 0), device=dev)  # [512, 2] (x, y)
+    pts = constant("orb.brief", dev, lambda: np.concatenate(brief_pattern(), 0))  # [512, 2]
     cos = torch.cos(angles)[:, None]
     sin = torch.sin(angles)[:, None]
     # steered BRIEF: sample at R(theta) @ p, rounded to nearest pixel

@@ -1,5 +1,6 @@
-"""Deterministic synthetic world (counterpart of `Trajectory` and
-`ImageWorld` in `monoorbslam3_tpu/sim.py`), numpy only.
+"""Deterministic synthetic world (counterpart of `Trajectory`,
+`HoverTrajectory`, `ImageWorld` and `World` in `monoorbslam3_tpu/sim.py`),
+numpy only.
 
 `Trajectory` is analytic: pose, velocity, acceleration and body rate in
 closed form, and IMU samples drawn from them (bit-identical to the JAX
@@ -9,6 +10,11 @@ package's on the same seed).
 into grayscale images. The ray/scene intersection lives in `intersect`, so
 a caller can also lift a keypoint to the true world point it sees
 (`world_points`) with the very code that rendered it.
+
+`World` is the feature-injection world: a landmark field projected through
+the port camera with pixel and descriptor noise, which drives the tracker
+without the extractor (its observations are bit-identical to the JAX
+package's on the same seeds).
 """
 
 from __future__ import annotations
@@ -93,6 +99,47 @@ class Trajectory:
             acc = acc + rng.normal(scale=noise_acc * np.sqrt(freq), size=acc.shape)
         dts = np.full(len(ts), dt)
         return gyro.astype(np.float32), acc.astype(np.float32), dts.astype(np.float32)
+
+
+@dataclass
+class HoverTrajectory(Trajectory):
+    """Quasi-stationary oscillation (EuRoC-MH-style hover): a bounded view
+    direction (a small yaw wiggle) and strong accelerations for IMU
+    observability, analytic as the circle."""
+
+    amp: float = 0.8
+    w1: float = 1.3
+    w2: float = 0.9
+    w3: float = 1.7
+    yaw_amp: float = 0.25
+    yaw_w: float = 0.7
+
+    def pos(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([self.radius + self.amp * np.sin(self.w1 * t),
+                         0.7 * self.amp * np.sin(self.w2 * t),
+                         0.4 * self.amp * np.sin(self.w3 * t)], axis=-1)
+
+    def vel(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([self.amp * self.w1 * np.cos(self.w1 * t),
+                         0.7 * self.amp * self.w2 * np.cos(self.w2 * t),
+                         0.4 * self.amp * self.w3 * np.cos(self.w3 * t)], axis=-1)
+
+    def acc(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([-self.amp * self.w1**2 * np.sin(self.w1 * t),
+                         -0.7 * self.amp * self.w2**2 * np.sin(self.w2 * t),
+                         -0.4 * self.amp * self.w3**2 * np.sin(self.w3 * t)], axis=-1)
+
+    def yaw(self, t):
+        return self.yaw_amp * np.sin(self.yaw_w * np.asarray(t, np.float64))
+
+    def omega_body(self, t):
+        t = np.asarray(t, np.float64)
+        out = np.zeros(t.shape + (3,))
+        out[..., 2] = self.yaw_amp * self.yaw_w * np.cos(self.yaw_w * t)
+        return out
 
 
 @dataclass
@@ -223,3 +270,81 @@ class ImageWorld:
         if noise > 0:
             img = img + rng.normal(scale=noise, size=img.shape)
         return np.clip(img, 0, 255).astype(np.float32)
+
+
+@dataclass
+class World:
+    """Landmark field + feature observation generator: the feature-injection
+    world that drives the tracker without the extractor."""
+
+    traj: Trajectory = field(default_factory=Trajectory)
+    n_points: int = 2000
+    seed: int = 7
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # landmarks on a cylinder band outside the trajectory circle, so the
+        # outward/tangent-facing camera always sees a wall of texture
+        r = rng.uniform(self.traj.radius + 3.0, self.traj.radius + 9.0, self.n_points)
+        th = rng.uniform(0, 2 * np.pi, self.n_points)
+        z = rng.uniform(-3.0, 4.0, self.n_points)
+        self.points = np.stack([r * np.cos(th), r * np.sin(th), z], axis=-1)
+        # a 256-bit descriptor per landmark, packed into 8 uint32 words
+        self.desc = rng.integers(0, 2**32, size=(self.n_points, 8), dtype=np.uint32)
+        self._rng = rng
+
+    def camera_pose(self, t, R_bc, t_bc):
+        """World->camera (R_cw, t_cw) from the body pose and the body->camera
+        extrinsics."""
+        R_wb = self.traj.R_wb(t)
+        p_wb = self.traj.pos(t)
+        R_wc = R_wb @ R_bc
+        t_wc = R_wb @ t_bc + p_wb
+        R_cw = R_wc.T
+        t_cw = -R_cw @ t_wc
+        return R_cw, t_cw
+
+    def observe(self, t, camera, R_bc, t_bc, noise_px=0.3, flip_bits=4,
+                max_kps=1024, min_depth=0.3, rng=None):
+        """Project the landmarks into the camera at time t (through the
+        port camera's float32 `project` and `is_in_image`, on its device).
+
+        Returns a dict of padded arrays: uv [max_kps, 2], desc [max_kps, 8]
+        uint32, point_id [max_kps] (-1 padding), valid [max_kps] bool, and
+        the true R_cw, t_cw. The descriptors are the landmark's with
+        `flip_bits` random bits flipped (ORB descriptor noise across
+        views)."""
+        rng = rng or self._rng
+        R_cw, t_cw = self.camera_pose(t, R_bc, t_bc)
+        pc = self.points @ R_cw.T + t_cw
+        pc_t = torch.as_tensor(pc.astype(np.float32), device=camera.device)
+        uv_t = camera.project(pc_t)
+        uv = uv_t.cpu().numpy()
+        in_img = camera.is_in_image(uv_t).cpu().numpy()
+        vis = (pc[:, 2] > min_depth) & in_img
+        ids = np.nonzero(vis)[0]
+        if len(ids) > max_kps:
+            # a deterministic subset by landmark id: consecutive frames see
+            # (mostly) the same landmarks, as a feature extractor does
+            ids = ids[:max_kps]
+        k = len(ids)
+
+        out_uv = np.zeros((max_kps, 2), np.float32)
+        out_desc = np.zeros((max_kps, 8), np.uint32)
+        out_pid = np.full(max_kps, -1, np.int64)
+        out_valid = np.zeros(max_kps, bool)
+
+        out_uv[:k] = uv[ids] + rng.normal(scale=noise_px, size=(k, 2))
+        d = self.desc[ids].copy()
+        if flip_bits > 0:
+            for _ in range(flip_bits):
+                word = rng.integers(0, 8, size=k)
+                bit = rng.integers(0, 32, size=k).astype(np.uint32)
+                d[np.arange(k), word] ^= (np.uint32(1) << bit)
+        out_desc[:k] = d
+        out_pid[:k] = ids
+        out_valid[:k] = True
+        return {
+            "uv": out_uv, "desc": out_desc, "point_id": out_pid, "valid": out_valid,
+            "R_cw": R_cw.astype(np.float32), "t_cw": t_cw.astype(np.float32),
+        }

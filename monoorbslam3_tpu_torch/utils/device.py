@@ -21,3 +21,17 @@ def resolve(device) -> torch.device:
         raise RuntimeError(f"device {dev}: no CUDA card on this host "
                            "(pass device='cpu' to run on the CPU)")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(key, device, make) -> torch.Tensor:
+    """The constant array `make()` returns, on `device`, uploaded once per
+    (key, device): an upload from pageable memory waits for the device's
+    queue, so a per-frame upload would stall every frame."""
+    k = (key, torch.device(device))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = torch.as_tensor(make(), device=device)
+    return t

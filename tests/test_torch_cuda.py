@@ -419,3 +419,53 @@ def test_inertial_pose_lm_card_matches_cpu(cuda):
         finals.append([a.cpu().numpy() for a in st])
     for a, b in zip(*finals):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_two_view_bootstrap_on_the_card(cuda):
+    """reconstruct_two_views on the card against the CPU on the same RANSAC
+    samples (a general scene at 4-12 m, 0.3 px noise, 20 outliers, the
+    samples drawn on the card by `draw_samples`): the same success and
+    family, R within 1e-4 rad, n_good within 1, good equal in 99% of the
+    rows. Its host syncs under the sync debug mode: the two of each of the
+    five batched SVDs at most (`torch.linalg.svd` reads its status back),
+    none from the draws, the winner's selection or the constants."""
+    import warnings
+
+    from monoorbslam3_tpu_torch.ops import twoview
+
+    rng = np.random.default_rng(11)
+    K = np.array([[450.0, 0.0, 376.0], [0.0, 450.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+    pts = np.stack([rng.uniform(-3, 3, 400), rng.uniform(-2, 2, 400), rng.uniform(4, 12, 400)], -1)
+    c, s = np.cos(0.1), np.sin(0.1)
+    R21 = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    t21 = np.array([0.4, 0.05, 0.02])
+    proj = lambda p: (p @ K.T)[:, :2] / p[:, 2:3]
+    uv1 = proj(pts) + rng.normal(scale=0.3, size=(400, 2))
+    uv2 = proj(pts @ R21.T + t21) + rng.normal(scale=0.3, size=(400, 2))
+    uv2[:20] += rng.uniform(30, 120, size=(20, 2))
+    xy1, xy2 = (np.concatenate([u, np.zeros((64, 2))]).astype(np.float32) for u in (uv1, uv2))
+    valid = np.concatenate([np.ones(400, bool), np.zeros(64, bool)])
+    args = [torch.as_tensor(a, device=cuda) for a in (xy1, xy2, valid, K)]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    idx = twoview.draw_samples(args[2], 200, gen)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = twoview.reconstruct_two_views(*args, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    assert syncs <= 10, syncs
+    assert bool(((idx >= 0) & (idx < 400)).all())
+    ref = twoview.reconstruct_two_views(*(a.cpu() for a in args), idx.cpu())
+    got = {k: v.cpu().numpy() for k, v in out.items()}
+    ref = {k: v.numpy() for k, v in ref.items()}
+    assert bool(got["success"]) == bool(ref["success"]) is True
+    assert (float(got["rh"]) > 0.45) == (float(ref["rh"]) > 0.45)
+    dR = got["R"].astype(np.float64).T @ ref["R"].astype(np.float64)
+    assert np.abs(dR - np.eye(3)).max() <= 1e-4
+    assert abs(int(got["n_good"]) - int(ref["n_good"])) <= 1
+    assert (got["good"] == ref["good"]).mean() >= 0.99

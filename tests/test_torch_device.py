@@ -69,3 +69,33 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
         call(device="cpu")
+
+
+def test_tracker_and_mapper_run_on_the_facades_device(monkeypatch):
+    """`Tracking` and `LocalMapping` take no device of their own: they run
+    on `problems.device`, the card unless the caller built the façade on the
+    CPU. Without a card the default façade raises, so neither can be built
+    on the card; on a CPU façade both (the tracker's RANSAC generator
+    included) live on the CPU. The two-view functions follow their inputs'
+    device."""
+    from monoorbslam3_tpu_torch.frontend.local_mapping import LocalMapping
+    from monoorbslam3_tpu_torch.frontend.tracking import Tracking
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import twoview
+
+    for cls in (Tracking, LocalMapping):
+        assert "device" not in inspect.signature(cls.__init__).parameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = Pinhole.create(fx=100.0, fy=100.0, cx=48.0, cy=32.0, width=96, height=64,
+                         device="cpu")
+    calib = ImuCalib.create(np.eye(3), np.zeros(3), 1e-4, 1e-3, 1e-5, 1e-3, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Problems(cam, calib)
+    problems = Problems(cam, calib, device="cpu")
+    tracker = Tracking(cam, calib, MapStore(max_kf=4, max_pt=16, n_feat=8), problems)
+    mapper = LocalMapping(tracker.store, problems, calib, tracker)
+    assert tracker.device == mapper.device == problems.device == torch.device("cpu")
+    assert tracker._ransac_gen.device == torch.device("cpu")
+    valid = torch.ones(16, dtype=torch.bool)
+    idx = twoview.draw_samples(valid, 4, tracker._ransac_gen)
+    assert idx.device == valid.device
