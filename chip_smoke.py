@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's eight paths, each with the kernel launch counts set to 0 just before
+port's nine paths, each with the kernel launch counts set to 0 just before
 it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -46,7 +46,20 @@ it and read just after:
    cluster route), held to the JAX package's `System` on the same stream
    (`experiments/port_track_map_jax.py`): bootstrap, OK ratio, init time,
    keyframe ATE, keyframe and point counts, fetches a frame and a mapper
-   step, and 0 host syncs inside every stage and BA solve.
+   step, and 0 host syncs inside every stage and BA solve;
+9. system world: run_validation.py's circlebow30 through the port's public
+   path (`config.build_system` of settings/synthetic_vocab.yaml with the
+   100k-leaf vocabulary, `System.warmup`, `runners.synth.SyntheticDataset`,
+   `runners.datasets.run_sequence` over 600 frames of 512x384, `shutdown`,
+   the five exports, `evaluation.metrics.evaluate_sequences`): every frame
+   through `System.track` (extraction, the vocabulary's tree descent, both
+   stages, the node-gated reference-keyframe match and triangulation), a
+   sync mapper step per keyframe (K1, K2, K3, K4's cluster route, and its
+   large-D route when a full polish holds more than local_k keyframes),
+   held to the JAX package's run of the same world
+   (`experiments/port_system_jax.py`) and the world's bounds; then a
+   resume (`load_state` of its checkpoint into a fresh System, the next 40
+   frames) and an async run (`async_mapper=True`, 200 frames).
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -85,7 +98,9 @@ functions on the CPU, or when the polish path's solves launch anything
 but K4's large-D route, or when a store BA call leaves the JAX
 package's costs, outliers, init recovery or polish ATE, syncs inside its
 solve or fetches more than its count, or when the track map misses a gate
-of `track_map_checks`. Prints, before the last line, the
+of `track_map_checks`, or the system world one of `system_world_checks`,
+`system_resume_checks` or `system_async_checks`. Prints, before the last
+line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -94,10 +109,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -294,6 +313,52 @@ JAX_TRACK_MAP = dict(bootstrap_frame=2, ok_ratio=1.0, imu_state=1, imu_init_t=2.
 # 10 cm, keyframes and points within 30% of JAX's
 TM_BOOT_SLACK, TM_OK_MIN, TM_OK_SLACK, TM_INIT_SLACK_S = 5, 0.9, 0.05, 1.0
 TM_ATE_FACTOR, TM_ATE_MAX_M, TM_COUNT_RTOL = 2.0, 0.10, 0.30
+
+# path 9, the system world: run_validation.py's circlebow30 (its settings
+# with the reference-scale vocabulary, its stream: the circle world at 20
+# fps, SyntheticDataset's default seed and sensor noise) through the
+# port's public path: build_system -> warmup -> SyntheticDataset ->
+# run_sequence -> shutdown -> the exports -> evaluate_sequences. The
+# dataset runs to 32 s so that frames 600-639 follow the 600 frames of the
+# world's 30 s for the resume run (the seed's draws run in frame order:
+# the first 600 frames are the t_end=30 stream's)
+SYSTEM_WORLD_SETTINGS = "synthetic_vocab.yaml"
+SYSTEM_WORLD_SPEC = "circle:t_end=32,fps=20"
+SYSTEM_WORLD_FRAMES = 600
+SYSTEM_RESUME_FRAMES = 40
+SYSTEM_ASYNC_FRAMES = 200
+# the world's bounds (run_validation.py:51-52) and evaluate_sequences'
+# association window there (max_dt 0.05)
+SYSTEM_WORLD_ATE_BOUND_M, SYSTEM_WORLD_SCALE_BOUND, SYSTEM_WORLD_MAX_DT = 0.4, 0.12, 0.05
+# the JAX package's run of the same 600 frames through its System on the
+# CPU (experiments/port_system_jax.py; PERF.md records the run): 599 of 600
+# frames OK (the first initializes), no LOST frame, the inertial init at
+# 2.30 s and imu_state 2 at the end, keyframe ATE 0.02902 m and scale error
+# 0.01061 (VALIDATION_r05.json's run of the world read 0.0243 and 0.0110:
+# that run is not this one, and the run here is the source), 103 keyframes
+# (121 created), 6,151 points; 3 fetches every tracked frame, 6-12 a mapper
+# step (p50 8); its full polishes held 11, 23, 34, 47, 60, 72, 84, 91 and
+# 101 keyframes (above local_k = 40 and up to full_k = 96 the grouped
+# problem of D = 1440, which takes K4's large-D route); its tracker never
+# fell back to the node-gated reference-keyframe match
+JAX_SYSTEM_WORLD = dict(n_frames=600, ok_frames=599, ok_ratio=599 / 600, n_lost=0, imu_state=2,
+                        imu_init_t=2.30, kf_ate_m=0.029022702679932202,
+                        scale_err=0.010605668211111752, n_kf=103, kf_created=121,
+                        n_points=6151,
+                        fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+                        fetches_per_mapper_step=dict(p50=8.0, mean=8.15126050420168, max=12.0),
+                        polish_kf_counts=[11, 23, 34, 47, 60, 72, 84, 91, 101],
+                        ref_kf_matches=0)
+# the gates (beside the world's bounds): no LOST frame (run_validation.py
+# passes a world so), an OK ratio at least JAX's less 0.05, the inertial
+# init, the keyframe ATE at most twice JAX's, keyframes within 30% of JAX's;
+# the resume run tracks again within 5 frames and keeps an OK ratio of 0.9
+SW_OK_SLACK, SW_ATE_FACTOR, SW_KF_RTOL = 0.05, 2.0, 0.30
+SW_RESUME_RECOVER, SW_RESUME_OK_MIN = 5, 0.9
+# the vocabulary gate is live: every valid keyframe feature carries a node
+# id into the triangulation searches (transform assigns one to every valid
+# descriptor)
+SW_GROUPED_MIN = 1.0
 
 
 # K4 phase: seeded systems beside the BA's own (D = 465 is ragged, K = 31;
@@ -941,14 +1006,6 @@ def track_map_summary(records, steps, store, traj, umeyama):
     s, R, t = umeyama(kp, gt)
     err = np.linalg.norm((s * kp @ R.T + t) - gt, axis=1)
     regular = [m for m in steps if not m["initial"]]
-
-    def stats(xs):
-        xs = np.asarray(xs, np.float64)
-        if not len(xs):
-            return None
-        return dict(p50=float(np.percentile(xs, 50)), p99=float(np.percentile(xs, 99)),
-                    mean=float(xs.mean()), max=float(xs.max()))
-
     return dict(
         n_frames=len(records), bootstrap_frame=boot,
         ok_ratio=float((after == 2).mean()) if len(after) else 0.0,
@@ -958,11 +1015,11 @@ def track_map_summary(records, steps, store, traj, umeyama):
         kf_ate_m=float(np.sqrt((err ** 2).mean())), kf_ate_scale=float(s),
         n_kf=len(ids), kf_created=int(store.kf_created_total), n_points=int(store.n_points()),
         n_mapper_steps=len(regular),
-        fetches_per_tracked_frame=stats([r["fetches"] for r in tracked]),
-        fetches_per_mapper_step=stats([m["fetches"] for m in regular]),
-        frame_ms=stats([r["frame_ms"] for r in tracked]),
-        mapper_ms=stats([m["host_ms"] for m in regular]),
-        n_tracked=stats([r["n_tracked"] for r in tracked]))
+        fetches_per_tracked_frame=_stats([r["fetches"] for r in tracked]),
+        fetches_per_mapper_step=_stats([m["fetches"] for m in regular]),
+        frame_ms=_stats([r["frame_ms"] for r in tracked]),
+        mapper_ms=_stats([m["host_ms"] for m in regular]),
+        n_tracked=_stats([r["n_tracked"] for r in tracked]))
 
 
 def store_calls(store):
@@ -1115,18 +1172,27 @@ def store_ba(device, n_runs=5, log=print):
 
 class SyncLedger:
     """Records, over a whole run, every host sync that PyTorch's sync debug
-    mode reports (nothing off the card), and attributes them to nested
-    regions: `with ledger.region(name):` adds the syncs made inside it to
-    `counts[name]` (the region's own and its inner regions')."""
+    mode reports (nothing off the card), each on the thread that made it:
+    the mode is global to the process, and an async mapper's syncs must not
+    land on the tracker's frames. `n()` counts the calling thread's, and
+    `with ledger.region(name):` adds the syncs its thread makes inside it
+    to `counts[name]` (the region's own and its inner regions')."""
 
     def __init__(self, on_card):
         self.on_card = on_card
-        self.caught = []
+        self.by_thread = collections.Counter()
         self.counts = collections.Counter()
         self.sites = collections.Counter()
+        self._lock = threading.Lock()
 
     def n(self):
-        return sum("called a synchronizing" in str(w.message) for w in self.caught)
+        return self.by_thread[threading.get_ident()]
+
+    def _seen(self, message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            with self._lock:
+                self.by_thread[threading.get_ident()] += 1
+                self.sites[f"{filename}:{lineno}"] += 1
 
     @contextlib.contextmanager
     def recording(self):
@@ -1135,17 +1201,15 @@ class SyncLedger:
             return
         import torch
 
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings():
             warnings.simplefilter("always")
-            self.caught = caught
+            # showwarning runs on the warning's own thread
+            warnings.showwarning = self._seen
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 yield self
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        for w in caught:
-            if "called a synchronizing" in str(w.message):
-                self.sites[f"{w.filename}:{w.lineno}"] += 1
 
     @contextlib.contextmanager
     def region(self, name):
@@ -1307,6 +1371,413 @@ def track_map_checks(tm, records, steps, on_card=True):
         if m["syncs"] > m["fetches"]:
             fails.append(f"track map: the mapper step of KF {m['kf']} synced {m['syncs']} "
                          f"times for {m['fetches']} fetches")
+    return fails
+
+
+class FrameMeter:
+    """Stands in for `system.track` (either package's System; assign it to
+    the instance's `track`): runs each frame, then `sync`, and records its
+    state, n_tracked, the IMU state, the host milliseconds, fetches
+    (`count()`) and host syncs (`syncs()`) of the frame without the mapper
+    steps it ran (those `meter` recorded during it; in async mode the
+    mapper runs on its own thread and nothing is taken out)."""
+
+    def __init__(self, system, meter, count, sync=lambda: None, syncs=lambda: 0,
+                 async_mapper=False, log=lambda line: None):
+        self.track, self.system, self.meter = system.track, system, meter
+        self.count, self.sync, self.syncs = count, sync, syncs
+        self.async_mapper, self.log = async_mapper, log
+        self.records = []
+
+    def __call__(self, t, image, imu=None):
+        i = len(self.records)
+        self.meter.frame = i
+        n_steps, n0, s0, t0 = len(self.meter.steps), self.count(), self.syncs(), time.perf_counter()
+        state = self.track(t, image, imu)
+        self.sync()
+        dt = 1e3 * (time.perf_counter() - t0)
+        mine = [] if self.async_mapper else self.meter.steps[n_steps:]
+        syst = self.system
+        last = syst.tracking.last_frame  # None after a reset inside the frame
+        rec = dict(frame=i, t=float(t), state=int(state),
+                   n_tracked=int(last.n_tracked) if last is not None else 0,
+                   imu_state=int(syst.mapper.imu_state),
+                   frame_ms=dt - sum(m["host_ms"] for m in mine),
+                   fetches=self.count() - n0 - sum(m["fetches"] for m in mine),
+                   syncs=self.syncs() - s0 - sum(m["syncs"] for m in mine),
+                   n_kf=syst.store.n_keyframes(), n_points=int(syst.store.n_points()))
+        self.records.append(rec)
+        self.log(json.dumps(rec))
+        for m in mine:
+            self.log(json.dumps({"mapper_step": m}))
+        return state
+
+
+def on_call(obj, name, note):
+    """Wraps obj.name so that note(*args, **kwargs) runs before each call."""
+    inner = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        note(*args, **kwargs)
+        return inner(*args, **kwargs)
+
+    setattr(obj, name, wrapped)
+
+
+def _stats(xs):
+    xs = np.asarray(xs, np.float64)
+    if not len(xs):
+        return None
+    return dict(p50=float(np.percentile(xs, 50)), p99=float(np.percentile(xs, 99)),
+                mean=float(xs.mean()), max=float(xs.max()))
+
+
+def system_world_summary(records, steps, system, ate):
+    """A `System` run's summary from its `FrameMeter.records`, its
+    `MapperMeter.steps`, the system and `ate` (one row of either package's
+    `evaluate_sequences` on the written keyframe trajectory): frames, OK
+    frames and ratio (over every frame, as run_validation.py counts them),
+    LOST events, the bootstrap frame, the inertial init, the keyframe ATE
+    and scale error, keyframe and point counts, fetches a tracked frame
+    (OK frames after the bootstrap) and a mapper step, and host times."""
+    states = np.asarray([r["state"] for r in records])
+    ok = states == 2
+    boot = int(np.argmax(ok)) if ok.any() else None
+    init = [r for r in records if r["imu_state"] >= 1]
+    tracked = [r for r in records[boot + 1:] if r["state"] == 2] if boot is not None else []
+    regular = [m for m in steps if not m["initial"]]
+    store = system.store
+    return dict(
+        n_frames=len(records), ok_frames=int(ok.sum()),
+        ok_ratio=float(ok.mean()) if len(ok) else 0.0, n_lost=int((states == 4).sum()),
+        bootstrap_frame=boot, imu_state=int(system.mapper.imu_state),
+        imu_init_t=init[0]["t"] if init else None,
+        kf_ate_m=float(ate["rmse"]), scale_err=abs(float(ate["scale"]) - 1.0),
+        ate_matched=int(ate["n"]), n_kf=store.n_keyframes(),
+        kf_created=int(store.kf_created_total), n_points=int(store.n_points()),
+        n_mapper_steps=len(regular),
+        fetches_per_tracked_frame=_stats([r["fetches"] for r in tracked]),
+        fetches_per_mapper_step=_stats([m["fetches"] for m in regular]),
+        frame_ms=_stats([r["frame_ms"] for r in tracked]),
+        mapper_ms=_stats([m["host_ms"] for m in regular]),
+        n_tracked=_stats([r["n_tracked"] for r in tracked]))
+
+
+# the device work of the system world with no host read of its own: the
+# track map's regions and the vocabulary's tree descent
+SYSTEM_WORLD_REGIONS = TRACK_MAP_REGIONS + (("ops.vocab", "_transform_impl", "vocabulary"),)
+EXPORTS = ("save_keyframe_trajectory", "save_velocity_and_bias", "save_point_cloud",
+           "save_keyframe_depth")
+
+
+# the child process of `_Prefetched`: renders SyntheticDataset(spec) on a
+# CPU rig of the settings file and writes each frame, pickled, to its
+# standard output (its prints, if any, go to standard error)
+_RENDER_CHILD = """
+import os, pickle, sys
+out = os.fdopen(os.dup(1), "wb")
+os.dup2(2, 1)
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(1)
+from monoorbslam3_tpu_torch import config
+from monoorbslam3_tpu_torch.runners.synth import SyntheticDataset
+settings = config.load_settings({settings!r})
+ds = SyntheticDataset({spec!r}, config.build_camera(settings, "cpu"),
+                      config.build_imu_calib(settings, "cpu"))
+for item in ds.frames():
+    pickle.dump(item, out, protocol=pickle.HIGHEST_PROTOCOL)
+    out.flush()
+"""
+
+
+class _Prefetched:
+    """The frames of SyntheticDataset(spec) on the settings file's rig,
+    rendered ahead by a child process (the renderer is host numpy, ~0.3 s a
+    frame: on the run's own thread it would double the path's wall time; in
+    its own process it takes one core and none of the frame's clock). The
+    frames are the dataset's own bits: it renders from a CPU copy of the
+    camera on any device. `frames()` continues one stream: `run_sequence`
+    draws one frame past its `max_frames` before it stops, so that frame is
+    kept and handed out first by the next `frames()`. `close()` stops the
+    child."""
+
+    def __init__(self, spec, settings_path):
+        code = _RENDER_CHILD.format(root=str(Path(__file__).resolve().parent),
+                                    settings=str(settings_path), spec=spec)
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE)
+        self.pending = None
+
+    def frames(self):
+        import pickle
+
+        while True:
+            if self.pending is None:
+                try:
+                    self.pending = pickle.load(self.proc.stdout)
+                except EOFError:
+                    if self.proc.wait() != 0:
+                        raise RuntimeError(f"the frame renderer exited ({self.proc.returncode})")
+                    return
+            yield self.pending
+            self.pending = None  # not reached when the consumer stops here
+
+    def close(self):
+        self.proc.kill()
+        self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _write_exports(syst, out_dir, tag):
+    """The five exports of `syst` into out_dir: the four text files and the
+    checkpoint. Returns ({name: path}, the checkpoint's path)."""
+    paths = {}
+    for name in EXPORTS:
+        paths[name] = str(Path(out_dir) / f"{tag}_{name}.txt")
+        getattr(syst, name)(paths[name])
+    ckpt = str(Path(out_dir) / f"{tag}_state.npz")
+    syst.save_state(ckpt)
+    paths["save_state"] = ckpt
+    return paths, ckpt
+
+
+def system_world(device, out_dir, n_frames=SYSTEM_WORLD_FRAMES, log=print):
+    """The system world on `device` through the port's public path:
+    `build_system(SYSTEM_WORLD_SETTINGS)` and `warmup` (each timed), a
+    `SyntheticDataset` of SYSTEM_WORLD_SPEC, `run_sequence` over its first
+    `n_frames` frames (rendered ahead by `_Prefetched`; each frame through
+    `System.track`, metered by
+    `FrameMeter`; each mapper step by `MapperMeter`; syncs recorded by
+    `SyncLedger` and attributed to SYSTEM_WORLD_REGIONS), `shutdown`, the
+    five exports into out_dir, and the keyframe ATE of the written
+    trajectory against the written ground truth (`evaluate_sequences`).
+    The launch counts are set to 0 after the warm-up. Returns (records,
+    mapper steps, summary, the stream to resume from, the checkpoint); the
+    caller closes the stream (`system_resume` does)."""
+    import importlib
+
+    import torch
+
+    from monoorbslam3_tpu_torch.config import build_system
+    from monoorbslam3_tpu_torch.evaluation.metrics import evaluate_sequences, load_tum
+    from monoorbslam3_tpu_torch.ops import cuda_lib
+    from monoorbslam3_tpu_torch.runners.datasets import run_sequence
+    from monoorbslam3_tpu_torch.runners.synth import SyntheticDataset
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    syst = build_system(str(SETTINGS / SYSTEM_WORLD_SETTINGS), device=device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    syst.warmup()
+    warmup_s = time.perf_counter() - t0
+    ledger = SyncLedger(on_card)
+    count = lambda: syst.problems.syncs.n
+    meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
+    syst.mapper.process = meter  # System._on_new_kf calls self.mapper.process
+    # the keyframes each full polish holds, and the tracker's fallbacks to
+    # the node-gated reference-keyframe match
+    polishes, ref_kf_matches = [], []
+    on_call(syst.problems, "full_inertial_optimize",
+            lambda store, *a, **k: polishes.append(store.n_keyframes()))
+    on_call(syst.tracking, "_match_against_ref_kf", lambda *a: ref_kf_matches.append(1))
+    frames = FrameMeter(syst, meter, count, sync, ledger.n, log=log)
+    syst.track = frames
+    dataset = SyntheticDataset(SYSTEM_WORLD_SPEC, syst.camera, syst.calib)
+    stream = _Prefetched(SYSTEM_WORLD_SPEC, SETTINGS / SYSTEM_WORLD_SETTINGS)
+    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
+               for m, attr, name in SYSTEM_WORLD_REGIONS]
+    _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
+    t0 = time.perf_counter()
+    try:
+        with ledger.recording():
+            run_sequence(syst, stream, max_frames=n_frames, progress_every=0,
+                         log=lambda line: None)
+    except BaseException:
+        stream.close()
+        raise
+    finally:
+        for r in restore:
+            r()
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    n_ref_kf = len(ref_kf_matches)
+    # the node-gated reference-keyframe search (SearchByBow), replayed after
+    # the run on a copy of the last frame against its reference keyframe:
+    # the tracker falls back to it only when the last frame's and the last
+    # keyframe's matches fail, which a healthy run may never do
+    replay = copy.copy(syst.tracking.last_frame)
+    replay.pt_ids = replay.pt_ids.copy()
+    replay_inliers = bool(syst.tracking._match_against_ref_kf(replay))
+    syst.shutdown()
+    paths, ckpt = _write_exports(syst, out_dir, "system_world")
+    gt = str(Path(out_dir) / "system_world_gt.txt")
+    dataset.save_ground_truth(gt)
+    (ate,) = evaluate_sequences([("circlebow30", paths["save_keyframe_trajectory"], gt)],
+                                max_dt=SYSTEM_WORLD_MAX_DT, log=lambda line: None)
+    summary = system_world_summary(frames.records, meter.steps, syst, ate)
+    t_est, _, _ = load_tum(paths["save_keyframe_trajectory"])
+    # the groups every keyframe's features carry into the triangulation
+    # searches' node gate and the reference-keyframe match
+    ids = syst.store.keyframe_ids()
+    fv = syst.store.kf_feat_valid[ids]
+    summary.update(
+        ref_kf_matches=n_ref_kf, ref_kf_replay_tracked=replay_inliers,
+        kf_features_grouped=float((syst.store.kf_feat_group[ids][fv] >= 0).mean()),
+        build_s=build_s, warmup_s=warmup_s, run_s=run_s, launches=launches,
+        polish_kf_counts=polishes, region_syncs=dict(ledger.counts),
+        sync_sites=dict(ledger.sites),
+        exports={k: os.path.getsize(p) if os.path.exists(p) else None for k, p in paths.items()},
+        trajectory_rows=len(t_est))
+    return frames.records, meter.steps, summary, stream, ckpt
+
+
+def system_resume(device, ckpt, stream, n_frames=SYSTEM_RESUME_FRAMES, log=print):
+    """`load_state` of the system world's checkpoint into a fresh System on
+    `device`, then the next `n_frames` frames of the same stream through
+    `run_sequence`. Returns its FrameMeter records."""
+    from monoorbslam3_tpu_torch.config import build_system
+    from monoorbslam3_tpu_torch.runners.datasets import run_sequence
+
+    syst = build_system(str(SETTINGS / SYSTEM_WORLD_SETTINGS), device=device)
+    syst.load_state(ckpt)
+    count = lambda: syst.problems.syncs.n
+    meter = MapperMeter(syst.mapper.process, count)
+    syst.mapper.process = meter
+    frames = FrameMeter(syst, meter, count, log=log)
+    syst.track = frames
+    try:
+        run_sequence(syst, stream, max_frames=n_frames, progress_every=0, log=lambda line: None)
+    finally:
+        stream.close()
+    syst.shutdown()
+    return frames.records
+
+
+def system_async(device, out_dir, n_frames=SYSTEM_ASYNC_FRAMES, log=print):
+    """`build_system(..., async_mapper=True)` and `warmup`, then the first
+    `n_frames` frames of a new SyntheticDataset of SYSTEM_WORLD_SPEC through
+    `run_sequence`; the mapper runs on its own thread (each step metered
+    there, syncs attributed per thread), so no mapper step is on a frame's
+    clock. Returns (records, mapper steps, summary: the system world's
+    plus whether the queue drained at `shutdown`)."""
+    import torch
+
+    from monoorbslam3_tpu_torch.config import build_system
+    from monoorbslam3_tpu_torch.evaluation.metrics import evaluate_sequences
+    from monoorbslam3_tpu_torch.runners.datasets import run_sequence
+    from monoorbslam3_tpu_torch.runners.synth import SyntheticDataset
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    syst = build_system(str(SETTINGS / SYSTEM_WORLD_SETTINGS), device=device,
+                        async_mapper=True)
+    syst.warmup()
+    ledger = SyncLedger(on_card)
+    count = lambda: syst.problems.syncs.n
+    meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
+    syst.mapper.process = meter
+    frames = FrameMeter(syst, meter, count, sync, ledger.n, async_mapper=True, log=log)
+    syst.track = frames
+    dataset = SyntheticDataset(SYSTEM_WORLD_SPEC, syst.camera, syst.calib)
+    stream = _Prefetched(SYSTEM_WORLD_SPEC, SETTINGS / SYSTEM_WORLD_SETTINGS)
+    try:
+        with ledger.recording():
+            run_sequence(syst, stream, max_frames=n_frames, progress_every=0,
+                         log=lambda line: None)
+            syst.shutdown()
+    finally:
+        stream.close()
+    drained = syst._queue.empty() and not syst._mapper_busy
+    est = str(Path(out_dir) / "system_async_trajectory.txt")
+    gt = str(Path(out_dir) / "system_async_gt.txt")
+    syst.save_keyframe_trajectory(est)
+    dataset.save_ground_truth(gt)
+    (ate,) = evaluate_sequences([("circlebow30 async", est, gt)],
+                                max_dt=SYSTEM_WORLD_MAX_DT, log=lambda line: None)
+    summary = system_world_summary(frames.records, meter.steps, syst, ate)
+    summary["queue_drained"] = bool(drained)
+    return frames.records, meter.steps, summary
+
+
+def system_world_checks(sw, records, steps, on_card=True):
+    """The system world's gates on a `system_world` run against
+    JAX_SYSTEM_WORLD and the world's bounds (the fetch and sync gates only
+    on the card, where they are counted). Returns the failures."""
+    ref, fails = JAX_SYSTEM_WORLD, []
+    if sw["n_lost"]:
+        fails.append(f"system world: {sw['n_lost']} LOST frames")
+    ok_min = ref["ok_ratio"] - SW_OK_SLACK
+    if not sw["ok_ratio"] >= ok_min:
+        fails.append(f"system world: OK ratio {sw['ok_ratio']} < {ok_min}")
+    if sw["imu_state"] < 1:
+        fails.append("system world: the inertial init never fired")
+    ate_max = min(SW_ATE_FACTOR * ref["kf_ate_m"], SYSTEM_WORLD_ATE_BOUND_M)
+    if not sw["kf_ate_m"] <= ate_max:
+        fails.append(f"system world: keyframe ATE {sw['kf_ate_m']} m > {ate_max} m")
+    if not sw["scale_err"] <= SYSTEM_WORLD_SCALE_BOUND:
+        fails.append(f"system world: scale error {sw['scale_err']} > {SYSTEM_WORLD_SCALE_BOUND}")
+    if abs(sw["n_kf"] - ref["n_kf"]) > SW_KF_RTOL * ref["n_kf"]:
+        fails.append(f"system world: {sw['n_kf']} keyframes, JAX's {ref['n_kf']}")
+    for name, size in sw["exports"].items():
+        if not size:
+            fails.append(f"system world: the export {name} was not written")
+    if not sw["kf_features_grouped"] >= SW_GROUPED_MIN:
+        fails.append(f"system world: {sw['kf_features_grouped']} of the keyframe features "
+                     f"carry a vocabulary group")
+    if sw["trajectory_rows"] != sw["n_kf"]:
+        fails.append(f"system world: the trajectory file holds {sw['trajectory_rows']} rows "
+                     f"for {sw['n_kf']} keyframes")
+    if not on_card:
+        return fails
+    for key in ("fetches_per_tracked_frame", "fetches_per_mapper_step"):
+        got, lim = sw[key], ref[key]
+        if got is None or got["max"] > lim["max"]:
+            fails.append(f"system world: {key} {got}, JAX's {lim}")
+    for name, n in sw["region_syncs"].items():
+        if n and name != "two-view bootstrap":
+            fails.append(f"system world: {n} host syncs inside the {name}")
+    boot = sw["bootstrap_frame"]
+    for r in records[boot + 1:] if boot is not None else []:
+        if r["state"] == 2 and r["syncs"] > r["fetches"]:
+            fails.append(f"system world: frame {r['frame']} synced {r['syncs']} times for "
+                         f"{r['fetches']} fetches")
+    for m in steps:
+        if m["syncs"] > m["fetches"]:
+            fails.append(f"system world: the mapper step of KF {m['kf']} synced {m['syncs']} "
+                         f"times for {m['fetches']} fetches")
+    return fails
+
+
+def system_resume_checks(records):
+    """The resume run's gates: tracked again within SW_RESUME_RECOVER
+    frames, no LOST frame, an OK ratio of at least SW_RESUME_OK_MIN."""
+    states = np.asarray([r["state"] for r in records])
+    ok = states == 2
+    fails = []
+    if not ok[:SW_RESUME_RECOVER].any():
+        fails.append(f"resume: no frame tracked within {SW_RESUME_RECOVER} frames")
+    if (states == 4).any():
+        fails.append(f"resume: {(states == 4).sum()} LOST frames")
+    if not ok.mean() >= SW_RESUME_OK_MIN:
+        fails.append(f"resume: OK ratio {ok.mean()} < {SW_RESUME_OK_MIN}")
+    return fails
+
+
+def system_async_checks(sa):
+    """The async run's gates: no LOST frame, the inertial init, the
+    keyframe ATE within the world's bound, the queue drained at shutdown."""
+    fails = []
+    if sa["n_lost"]:
+        fails.append(f"async: {sa['n_lost']} LOST frames")
+    if sa["imu_state"] < 1:
+        fails.append("async: the inertial init never fired")
+    if not sa["kf_ate_m"] <= SYSTEM_WORLD_ATE_BOUND_M:
+        fails.append(f"async: keyframe ATE {sa['kf_ate_m']} m > {SYSTEM_WORLD_ATE_BOUND_M} m")
+    if not sa["queue_drained"]:
+        fails.append("async: the mapper queue did not drain at shutdown")
     return fails
 
 
@@ -2241,6 +2712,100 @@ def main(argv=None) -> int:
           f"{len(tm_k3.calls)} searches, K1 on the last frame: bit-identical; K4's last "
           f"{len(tm_k4.calls)} reduced systems join the K4 phase")
 
+    # -- path 9, the system world: System.track over circlebow30 -------------
+    # (system_world sets the counts to 0 itself, after build_system and its
+    # warm-up); then the resume and the async runs of the same world
+    sw_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    with _Capture(match_pallas, "_match_rows_cuda") as sw_k2, \
+            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as sw_k3, \
+            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as sw_k1, \
+            _Capture(chol_pallas, "chol_solve_cluster", maxlen=8) as sw_k4, \
+            _Capture(chol_pallas, "chol_solve_l2", maxlen=1) as sw_k4l2, \
+            _Capture(tracking, "projected_match", maxlen=1) as sw_ref:
+        sw_records, sw_steps, sw, sw_stream, sw_ckpt = system_world(dev, sw_tmp.name,
+                                                                    log=lambda line: None)
+    torch.cuda.synchronize()
+    sw_launches = sw["launches"]
+    print(f"system world: build_system {sw['build_s']:.2f} s, warmup {sw['warmup_s']:.2f} s, "
+          f"{len(sw_records)} frames in {sw['run_s']:.1f} s host "
+          f"({time.perf_counter() - t0:.1f} s with the exports); launches {json.dumps(sw_launches)}")
+    print("system world states:", "".join(str(r["state"]) for r in sw_records))
+    print("system world n_tracked:", [r["n_tracked"] for r in sw_records])
+    print("system world frame ms:", [round(r["frame_ms"], 1) for r in sw_records])
+    print("system world fetches / syncs a frame:",
+          [(r["fetches"], r["syncs"]) for r in sw_records])
+    print("system world mapper steps (frame, KF, ms, fetches, syncs):",
+          [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+           for m in sw_steps])
+    print(f"system world full polishes at keyframe counts {sw['polish_kf_counts']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['polish_kf_counts']}; above local_k the grouped problem, "
+          f"K4's large-D route: {sw_launches['chol_solve_l2']} launches)")
+    print("system world summary:", json.dumps(sw))
+    print(f"system world against the JAX package on the CPU: {json.dumps(JAX_SYSTEM_WORLD)}")
+    print(f"system world ({card}): OK {sw['ok_frames']}/{sw['n_frames']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['ok_frames']}/{JAX_SYSTEM_WORLD['n_frames']}), LOST {sw['n_lost']}, "
+          f"imu_state {sw['imu_state']} (JAX's {JAX_SYSTEM_WORLD['imu_state']}), init at "
+          f"{sw['imu_init_t']} s (JAX's {JAX_SYSTEM_WORLD['imu_init_t']}), keyframe ATE "
+          f"{sw['kf_ate_m']:.5f} m (JAX's {JAX_SYSTEM_WORLD['kf_ate_m']:.5f}, bound "
+          f"{SYSTEM_WORLD_ATE_BOUND_M}), scale error {sw['scale_err']:.5f} (JAX's "
+          f"{JAX_SYSTEM_WORLD['scale_err']:.5f}, bound {SYSTEM_WORLD_SCALE_BOUND}), keyframes "
+          f"{sw['n_kf']} (JAX's {JAX_SYSTEM_WORLD['n_kf']}), points {sw['n_points']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['n_points']}); frame p50 {sw['frame_ms']['p50']:.1f} ms, p99 "
+          f"{sw['frame_ms']['p99']:.1f} ms; mapper step p50 {sw['mapper_ms']['p50']:.1f} ms, "
+          f"mean {sw['mapper_ms']['mean']:.1f} ms")
+    for label, a in zip(K2_CALLS, sw_k2.calls):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 system world {label}")
+    # the last projected match of the path is the node-gated reference-
+    # keyframe match system_world replays on the last frame: K2 with the
+    # vocabulary's groups, held to the same match on the CPU's plain path
+    ref_args, ref_kw = sw_ref.calls[-1], sw_ref.kwargs[-1]
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    n0 = cuda_lib.launches["match_rows"]
+    got = tracking.projected_match(*ref_args, **ref_kw)
+    torch.cuda.synchronize()
+    node_gated_launches = cuda_lib.launches["match_rows"] - n0
+    ref = tracking.projected_match(*map(cpu, ref_args), **{k: cpu(v) for k, v in ref_kw.items()})
+    if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+        raise RuntimeError("K2 on the node-gated reference-keyframe match disagrees with the "
+                           "CPU's plain path")
+    for a in sw_k3.calls:
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError("K3 on the system world's searches disagrees with its plain version")
+    for a in sw_k1.calls:
+        got = pallas_kernels.gather_patches_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+            raise RuntimeError("K1 on the system world's last frame disagrees with its plain version")
+    print(f"system world: K2 on the last frame's {len(sw_k2.calls)} launches and on the "
+          f"{node_gated_launches} launches of the node-gated reference-keyframe match "
+          f"replayed on the last frame ({sw['ref_kf_matches']} such matches on the path), K3 "
+          f"on the last {len(sw_k3.calls)} searches (every keyframe feature node-gated: "
+          f"{sw['kf_features_grouped']}), K1 on the last frame: bit-identical; K4's last "
+          f"{len(sw_k4.calls)} cluster-route and {len(sw_k4l2.calls)} large-D systems join the "
+          f"K4 phase")
+    t0 = time.perf_counter()
+    resume_records = system_resume(dev, sw_ckpt, sw_stream, log=lambda line: None)
+    print(f"system resume ({time.perf_counter() - t0:.1f} s): frames "
+          f"{SYSTEM_WORLD_FRAMES}..{SYSTEM_WORLD_FRAMES + len(resume_records) - 1} states "
+          + "".join(str(r["state"]) for r in resume_records) + ", n_tracked "
+          + str([r["n_tracked"] for r in resume_records]))
+    t0 = time.perf_counter()
+    async_records, async_steps, sa = system_async(dev, sw_tmp.name, log=lambda line: None)
+    print(f"system async ({time.perf_counter() - t0:.1f} s): states "
+          + "".join(str(r["state"]) for r in async_records))
+    print("system async summary:", json.dumps(sa))
+    print(f"system async ({card}): frame p50 {sa['frame_ms']['p50']:.1f} ms, p99 "
+          f"{sa['frame_ms']['p99']:.1f} ms with the mapper on its own thread (the sync run: p50 "
+          f"{sw['frame_ms']['p50']:.1f}, p99 {sw['frame_ms']['p99']:.1f} ms); "
+          f"{len(async_steps)} mapper steps, keyframe ATE {sa['kf_ate_m']:.5f} m, init "
+          f"{sa['imu_init_t']} s, queue drained {sa['queue_drained']}")
+    sw_tmp.cleanup()
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -2320,6 +2885,7 @@ def main(argv=None) -> int:
                         launches=launches["gather_patches"],
                         launches_vi_drive=vi_launches["gather_patches"],
                         launches_track_map=tm_launches["gather_patches"],
+                        launches_system_world=sw_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -2387,6 +2953,7 @@ def main(argv=None) -> int:
                         launches=launches["match_rows"],
                         launches_vi_drive=vi_launches["match_rows"],
                         launches_track_map=tm_launches["match_rows"],
+                        launches_system_world=sw_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -2439,6 +3006,7 @@ def main(argv=None) -> int:
                         launches=map_launches["hamming"],
                         launches_fisheye_search=fish_launches["hamming"],
                         launches_track_map=tm_launches["hamming"],
+                        launches_system_world=sw_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -2459,7 +3027,9 @@ def main(argv=None) -> int:
                "polish G=2": polish["polish_parallel"]["systems"],
                "store local G=1": sba["systems"]["local_full_bundle_adjustment"],
                "store polish G=1": sba["systems"]["full_inertial_optimize"],
-               "track map G=1": list(tm_k4.calls), **seeded}
+               "track map G=1": list(tm_k4.calls), "system world G=1": list(sw_k4.calls),
+               **({"system world large-D": list(sw_k4l2.calls)} if sw_k4l2.calls else {}),
+               **seeded}
     route_launches = {}
     for label, items in systems.items():
         e64, ep, epl64 = 0.0, 0.0, 0.0
@@ -2577,6 +3147,7 @@ def main(argv=None) -> int:
                         launches=ba_launches["chol_solve"],
                         launches_store_ba=store_launches["chol_solve"],
                         launches_track_map=tm_launches["chol_solve"],
+                        launches_system_world=sw_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -2589,6 +3160,7 @@ def main(argv=None) -> int:
                         launches=polish_launches["chol_solve_l2"],
                         launches_store_ba=store_launches["chol_solve_l2"],
                         launches_track_map=tm_launches["chol_solve_l2"],
+                        launches_system_world=sw_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -2641,7 +3213,11 @@ def main(argv=None) -> int:
                             ("track map", "gather_patches", tm_launches),
                             ("track map", "match_rows", tm_launches),
                             ("track map", "hamming", tm_launches),
-                            ("track map", "chol_solve", tm_launches)):
+                            ("track map", "chol_solve", tm_launches),
+                            ("system world", "gather_patches", sw_launches),
+                            ("system world", "match_rows", sw_launches),
+                            ("system world", "hamming", sw_launches),
+                            ("system world", "chol_solve", sw_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2656,6 +3232,11 @@ def main(argv=None) -> int:
         failures.append("window BA: K4's large-D route ran on the D = 480 systems")
     failures += store_checks(sba)
     failures += track_map_checks(tm, tm_records, tm_steps)
+    failures += system_world_checks(sw, sw_records, sw_steps)
+    if ref_kw.get("groups_a") is None or not node_gated_launches:
+        failures.append("system world: the node-gated reference-keyframe match launched no K2")
+    failures += system_resume_checks(resume_records)
+    failures += system_async_checks(sa)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

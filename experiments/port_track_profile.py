@@ -29,6 +29,11 @@ and the kernels that take the most device time.
     python experiments/port_track_profile.py [--frames 10] [--inertial]
     python experiments/port_track_profile.py --cpu-ops
     python experiments/port_track_profile.py --track-map [--frame 70] [--step 10]
+    python experiments/port_track_profile.py --system [--frame 70] [--step 10]
+
+`--system` profiles the same window of chip_smoke's system world instead
+(`System.track` on the circlebow30 stream: the extraction, the
+vocabulary's tree descent, `track_feats`, with the System's sync mapper).
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ def main():
                     help="the visual-inertial drive, and the inertial pieces' launches")
     ap.add_argument("--cpu-ops", action="store_true",
                     help="only the inertial pieces' aten operations on the CPU (no card)")
+    ap.add_argument("--system", action="store_true",
+                    help="profile frames and a mapper step of chip_smoke's system world")
     ap.add_argument("--track-map", action="store_true",
                     help="the track-map path: tracked frames and a mapper step")
     ap.add_argument("--frame", type=int, default=70,
@@ -81,8 +88,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("port_track_profile: needs a CUDA device")
     print(torch.cuda.get_device_name(0))
-    if args.track_map:
-        return track_map_profile(args.frame, args.step, args.top)
+    if args.track_map or args.system:
+        return track_map_profile(args.frame, args.step, args.top, system=args.system)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = []
 
@@ -138,9 +145,11 @@ def _summary(prof, host_ms, top):
                 top=[(e.key[:70], round(_dev_us(e) / 1e3, 4), e.count) for e in kern[:top]])
 
 
-def track_map_profile(frame_at, step_at, top):
+def track_map_profile(frame_at, step_at, top, system=False):
     """Profile five tracked frames and one regular mapper step of
-    chip_smoke's track-map path (see the module docstring)."""
+    chip_smoke's track-map path, or of its system world (see the module
+    docstring)."""
+    import tempfile
     import time
 
     from monoorbslam3_tpu_torch.frontend.local_mapping import LocalMapping
@@ -181,15 +190,20 @@ def track_map_profile(frame_at, step_at, top):
         out[f"mapper step {step_at} (KF {k}, imu_state {self.imu_state})"] = _summary(
             p, 1e3 * (time.perf_counter() - t0), top)
 
-    pipe = cs.TorchPipe("cuda")
-    pipe.features(torch.zeros((pipe.cam.height, pipe.cam.width)).numpy())
     # the tracer's first start takes seconds: not inside a measured window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
     LocalMapping.process = process
     try:
-        cs.track_map(pipe, n_frames=frame_at + 5, log=log)
+        if system:
+            with tempfile.TemporaryDirectory() as d:
+                *_, stream, _ = cs.system_world("cuda", d, n_frames=frame_at + 5, log=log)
+                stream.close()
+        else:
+            pipe = cs.TorchPipe("cuda")
+            pipe.features(torch.zeros((pipe.cam.height, pipe.cam.width)).numpy())
+            cs.track_map(pipe, n_frames=frame_at + 5, log=log)
     finally:
         LocalMapping.process = orig
     for name, rec in out.items():

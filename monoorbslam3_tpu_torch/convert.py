@@ -86,3 +86,13 @@ def ba_problem(p, device=CARD) -> BAProblem:
         ie_edge=preint_edge(p.ie_edge, device), ie_valid=mask(p.ie_valid),
         walk_inv_sigma=f32(p.walk_inv_sigma), walk_valid=mask(p.walk_valid),
         prior_inv_sigma=f32(p.prior_inv_sigma), prior_ref=kf_state(p.prior_ref, device))
+
+
+def vocabulary(v, device=CARD):
+    """A Vocabulary's fields (the JAX package's record: uint32 node words,
+    float32 idf) -> the port's Vocabulary on `device`."""
+    from .ops.vocab import Vocabulary
+
+    return Vocabulary.from_numpy(v.k, v.levels, np.asarray(v.node_desc, np.uint32),
+                                 v.level_offset, np.asarray(v.word_idf, np.float32),
+                                 v.group_level, device)

@@ -54,10 +54,18 @@ class ImuCalib(NamedTuple):
         (the reference's sf = sqrt(freq), Imu.cpp:39-50): noise variance
         times freq, walk variance over freq."""
         f32 = dict(dtype=torch.float32, device=resolve(device))
-        R_bc = torch.as_tensor(np.asarray(R_bc, np.float32), **f32)
-        t_bc = torch.as_tensor(np.asarray(t_bc, np.float32), **f32)
+        R_bc_h = np.asarray(R_bc, np.float32)
+        t_bc_h = np.asarray(t_bc, np.float32)
+        # t_cb = -R_cb t_bc as XLA's CPU dot forms it, a running FMA over
+        # the columns (the float64 product is exact; one rounding a step),
+        # so the calibration holds the JAX package's bits
+        acc = np.zeros(3, np.float32)
+        for k in range(3):
+            acc = (-R_bc_h[k].astype(np.float64) * t_bc_h[k] + acc).astype(np.float32)
+        R_bc = torch.as_tensor(R_bc_h, **f32)
+        t_bc = torch.as_tensor(t_bc_h, **f32)
         R_cb = R_bc.T.contiguous()
-        t_cb = -R_cb @ t_bc
+        t_cb = torch.as_tensor(acc, **f32)
         cov_noise = torch.tensor([noise_gyro**2 * freq] * 3 + [noise_acc**2 * freq] * 3, **f32)
         cov_walk = torch.tensor([walk_gyro**2 / freq] * 3 + [walk_acc**2 / freq] * 3, **f32)
         bias = lambda b: torch.zeros(3, **f32) if b is None else torch.as_tensor(

@@ -1,6 +1,5 @@
-"""Deterministic synthetic world (counterpart of `Trajectory`,
-`HoverTrajectory`, `ImageWorld` and `World` in `monoorbslam3_tpu/sim.py`),
-numpy only.
+"""Deterministic synthetic world (counterpart of `monoorbslam3_tpu/sim.py`,
+whole), numpy only.
 
 `Trajectory` is analytic: pose, velocity, acceleration and body rate in
 closed form, and IMU samples drawn from them (bit-identical to the JAX
@@ -10,6 +9,9 @@ package's on the same seed).
 into grayscale images. The ray/scene intersection lives in `intersect`, so
 a caller can also lift a keypoint to the true world point it sees
 (`world_points`) with the very code that rendered it.
+
+`ForwardTrajectory` and `CorridorImageWorld` are the forward-motion
+(KITTI-like) street, `CorridorWorld` its feature-injection twin.
 
 `World` is the feature-injection world: a landmark field projected through
 the port camera with pixel and descriptor noise, which drives the tracker
@@ -143,6 +145,66 @@ class HoverTrajectory(Trajectory):
 
 
 @dataclass
+class ForwardTrajectory(Trajectory):
+    """Forward-dominant vehicle motion (the KITTI-raw regime): constant
+    speed along +x with a lateral meander, small vertical bumps and a
+    longitudinal surge; yaw follows the tangent, so the camera looks near
+    the focus of expansion. The surge (~5 s period) keeps the
+    monocular-inertial scale observable inside the init window (see the
+    JAX package's docstring)."""
+
+    speed: float = 8.0
+    curve_amp: float = 4.0
+    curve_w: float = 0.12
+    bump_amp: float = 0.04
+    bump_w: float = 2.1
+    surge_amp: float = 0.35
+    surge_w: float = 1.3
+
+    def pos(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([
+            self.speed * t + self.surge_amp * np.sin(self.surge_w * t),
+            self.curve_amp * np.sin(self.curve_w * t),
+            self.bump_amp * np.sin(self.bump_w * t),
+        ], axis=-1)
+
+    def vel(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([
+            self.speed + self.surge_amp * self.surge_w * np.cos(self.surge_w * t),
+            self.curve_amp * self.curve_w * np.cos(self.curve_w * t),
+            self.bump_amp * self.bump_w * np.cos(self.bump_w * t),
+        ], axis=-1)
+
+    def acc(self, t):
+        t = np.asarray(t, np.float64)
+        return np.stack([
+            -self.surge_amp * self.surge_w**2 * np.sin(self.surge_w * t),
+            -self.curve_amp * self.curve_w**2 * np.sin(self.curve_w * t),
+            -self.bump_amp * self.bump_w**2 * np.sin(self.bump_w * t),
+        ], axis=-1)
+
+    def _vx(self, t):
+        return self.speed + self.surge_amp * self.surge_w * np.cos(self.surge_w * t)
+
+    def yaw(self, t):
+        t = np.asarray(t, np.float64)
+        vy = self.curve_amp * self.curve_w * np.cos(self.curve_w * t)
+        return np.arctan2(vy, self._vx(t))
+
+    def omega_body(self, t):
+        t = np.asarray(t, np.float64)
+        vx = self._vx(t)
+        dvx = -self.surge_amp * self.surge_w**2 * np.sin(self.surge_w * t)
+        vy = self.curve_amp * self.curve_w * np.cos(self.curve_w * t)
+        dvy = -self.curve_amp * self.curve_w**2 * np.sin(self.curve_w * t)
+        out = np.zeros(t.shape + (3,))
+        out[..., 2] = (dvy * vx - vy * dvx) / (vx * vx + vy * vy)
+        return out
+
+
+@dataclass
 class ImageWorld:
     """Renderable synthetic world: a textured cylinder wall around the
     trajectory circle plus textured pillars, ray-cast per frame."""
@@ -155,6 +217,9 @@ class ImageWorld:
     tex_h: int = 1024
     tex_w: int = 4096
     seed: int = 11
+    # low-texture stretch: the wall azimuth sector [a0, a1] (radians) whose
+    # texture contrast collapses (a white wall, an overexposed window)
+    blank_sector: tuple | None = None
 
     def __post_init__(self):
         rng = np.random.default_rng(self.seed)
@@ -166,6 +231,13 @@ class ImageWorld:
         tex -= tex.min()
         tex *= 255.0 / tex.max()
         self.texture = tex.astype(np.float32)
+        if self.blank_sector is not None:
+            a0, a1 = self.blank_sector
+            c0 = int((a0 + np.pi) / (2 * np.pi) * self.tex_w)
+            c1 = int((a1 + np.pi) / (2 * np.pi) * self.tex_w)
+            c0, c1 = max(0, min(c0, c1)), min(self.tex_w, max(c0, c1))
+            band = self.texture[:, c0:c1]
+            self.texture[:, c0:c1] = band.mean() + 0.02 * (band - band.mean())
         self.z_span = 8.0  # vertical extent the texture band covers
         ang = rng.uniform(0, 2 * np.pi, self.n_pillars)
         self.pillar_xy = np.stack(
@@ -273,6 +345,77 @@ class ImageWorld:
 
 
 @dataclass
+class CorridorImageWorld(ImageWorld):
+    """Renderable street for forward motion (KITTI-like): two textured
+    facades, a ground plane and a far end wall, ray-cast with ImageWorld's
+    texture, sky above the facades. Pair with ForwardTrajectory: most
+    pixels sit near the focus of expansion. The JAX package's docstring
+    gives the measurements behind the width and the texture scale."""
+
+    half_width: float = 30.0
+    ground_z: float = -1.6
+    facade_top: float = 14.0
+    sky_lum: float = 96.0
+    length: float = 700.0  # the far end wall
+    tile_u: float = 96.0  # metres per texture tile along u
+    tile_v: float = 24.0  # and along v
+
+    def render(self, t, camera, R_bc, t_bc, noise=1.0, rng=None):
+        rng = rng or np.random.default_rng(int(t * 1e3) % (2**31))
+        d_c = self._ray_grid(camera)
+        R_cw, t_cw = self.pose_cw(t, R_bc, t_bc)
+        R_wc = R_cw.T
+        o_w = -R_wc @ t_cw
+        d_w = d_c @ R_wc.T  # [H, W, 3]
+
+        H, W = d_w.shape[:2]
+        s_best = np.full((H, W), np.inf)
+        tu = np.zeros((H, W))
+        tv = np.zeros((H, W))
+        # (axis, value, uoff, clip): u along x, v along the other axis (the
+        # end wall: u along y, v along z); `clip` stops the facades at
+        # facade_top
+        planes = [
+            (1, +self.half_width, 0.00, True),   # left facade:  (x, z)
+            (1, -self.half_width, 0.37, True),   # right facade
+            (2, self.ground_z, 0.61, False),     # ground:       (x, y)
+            (0, self.length, 0.19, True),        # end wall:     (y, z)
+        ]
+        sky = np.ones((H, W), bool)
+        for axis, value, uoff, clip in planes:
+            dn = d_w[..., axis]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                s = np.where(np.abs(dn) > 1e-9, (value - o_w[axis]) / dn, np.inf)
+            hit = (s > 0.1) & (s < s_best)
+            s = np.where(hit, s, 1.0)  # keep masked-lane math finite
+            p = o_w[None, None] + s[..., None] * d_w
+            if clip:
+                hit &= p[..., 2] <= self.facade_top
+            uax = 1 if axis == 0 else 0
+            u = np.mod(p[..., uax] / self.tile_u + uoff, 1.0) * (self.tex_w - 1)
+            vax = 1 if axis == 2 else 2
+            v = np.mod(p[..., vax] / self.tile_v + 0.5, 1.0) * (self.tex_h - 1)
+            s_best = np.where(hit, s, s_best)
+            sky &= ~hit
+            tu = np.where(hit, u, tu)
+            tv = np.where(hit, v, tv)
+
+        u0 = np.floor(tu).astype(np.int64) % self.tex_w
+        v0 = np.floor(tv).astype(np.int64) % self.tex_h
+        u1 = (u0 + 1) % self.tex_w
+        v1 = (v0 + 1) % self.tex_h
+        au = (tu - np.floor(tu)).astype(np.float32)
+        av = (tv - np.floor(tv)).astype(np.float32)
+        T = self.texture
+        img = ((1 - au) * (1 - av) * T[v0, u0] + au * (1 - av) * T[v0, u1]
+               + (1 - au) * av * T[v1, u0] + au * av * T[v1, u1])
+        img = np.where(sky, self.sky_lum, img)
+        if noise > 0:
+            img = img + rng.normal(scale=noise, size=img.shape)
+        return np.clip(img, 0, 255).astype(np.float32)
+
+
+@dataclass
 class World:
     """Landmark field + feature observation generator: the feature-injection
     world that drives the tracker without the extractor."""
@@ -348,3 +491,44 @@ class World:
             "uv": out_uv, "desc": out_desc, "point_id": out_pid, "valid": out_valid,
             "R_cw": R_cw.astype(np.float32), "t_cw": t_cw.astype(np.float32),
         }
+
+
+@dataclass
+class CorridorWorld(World):
+    """Feature-injection corridor for forward motion: landmarks on two side
+    walls, the ground and a far skyline along the trajectory's x-extent."""
+
+    traj: Trajectory = field(default_factory=ForwardTrajectory)
+    length: float = 600.0
+    half_width: float = 12.0
+    ground_z: float = -1.6
+    # low-texture stretch: an x-range with a sparse landmark field
+    sparse_x: tuple | None = None
+    sparse_keep: float = 0.12
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        n_far = self.n_points // 5  # end-wall skyline (the KITTI horizon)
+        n_wall = (self.n_points - n_far) * 2 // 5
+        n_ground = self.n_points - n_far - 2 * n_wall
+        x_l = rng.uniform(-10.0, self.length, n_wall)
+        x_r = rng.uniform(-10.0, self.length, n_wall)
+        x_g = rng.uniform(-10.0, self.length, n_ground)
+        left = np.stack([x_l, np.full(n_wall, self.half_width),
+                         rng.uniform(self.ground_z, 4.0, n_wall)], -1)
+        right = np.stack([x_r, np.full(n_wall, -self.half_width),
+                          rng.uniform(self.ground_z, 4.0, n_wall)], -1)
+        ground = np.stack([x_g, rng.uniform(-self.half_width, self.half_width, n_ground),
+                           np.full(n_ground, self.ground_z)], -1)
+        far = np.stack([np.full(n_far, self.length + 80.0),
+                        rng.uniform(-60.0, 60.0, n_far),
+                        rng.uniform(self.ground_z, 25.0, n_far)], -1)
+        self.points = np.concatenate([left, right, ground, far], axis=0)
+        if self.sparse_x is not None:
+            x0, x1 = self.sparse_x
+            inside = (self.points[:, 0] >= x0) & (self.points[:, 0] <= x1)
+            drop = inside & (rng.uniform(size=len(inside)) > self.sparse_keep)
+            self.points = self.points[~drop]
+        self.n_points = len(self.points)
+        self.desc = rng.integers(0, 2**32, size=(self.n_points, 8), dtype=np.uint32)
+        self._rng = rng

@@ -158,7 +158,17 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     best = torch.argmax(scores, dim=-1)
     idx = best[..., None, None].expand(*best.shape, 1, 4)
     q = torch.gather(cands, -2, idx)[..., 0, :]
-    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    # the norm as XLA on the CPU forms it, so that exported quaternions are
+    # the JAX package's to the last bit: the squares accumulated in order,
+    # each with one rounding (an FMA, here an exact float64 product and
+    # sum rounded once), and a correctly rounded square root (torch's
+    # vectorized float32 sqrt on the CPU is not: one in six differs by an
+    # ulp; the float64 root rounded to float32 is)
+    acc = torch.zeros_like(q[..., 0], dtype=torch.float64)
+    for i in range(4):
+        x = q[..., i].double()
+        acc = (x * x + acc).to(q.dtype).double()
+    q = q / torch.sqrt(acc).to(q.dtype)[..., None]
     return q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
 
 

@@ -469,3 +469,81 @@ def test_two_view_bootstrap_on_the_card(cuda):
     assert np.abs(dR - np.eye(3)).max() <= 1e-4
     assert abs(int(got["n_good"]) - int(ref["n_good"])) <= 1
     assert (got["good"] == ref["good"]).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_vocabulary_transform_on_the_card(cuda):
+    """Vocabulary.transform of the 100k-leaf vocabulary on the card against
+    the CPU on seeded descriptors with padding: word and group ids equal,
+    the BoW vector within 1e-7, and no host sync (the sync debug mode set
+    to raise)."""
+    from pathlib import Path
+
+    from monoorbslam3_tpu_torch.ops import vocab
+
+    path = Path(__file__).resolve().parents[1] / "settings" / "synthetic_voc_100k.txt.gz"
+    v_cpu = vocab.load_dbow2_text(str(path), device="cpu")
+    nd, idf = v_cpu.host_tables()
+    v_card = vocab.Vocabulary.from_numpy(v_cpu.k, v_cpu.levels, nd, v_cpu.level_offset, idf,
+                                         v_cpu.group_level, cuda)
+    rng = np.random.default_rng(21)
+    desc = rng.integers(0, 2**32, size=(768, 8), dtype=np.uint32)
+    desc[:64] = nd[rng.integers(0, len(nd), 64)]
+    valid = np.ones(768, bool)
+    valid[700:] = False
+    d_cpu = torch.from_numpy(desc.view(np.int32).copy())
+    v_t = torch.from_numpy(valid)
+    d_card, val_card = d_cpu.to(cuda), v_t.to(cuda)
+    v_card.transform(d_card, val_card)  # first launches outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = v_card.transform(d_card, val_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = v_cpu.transform(d_cpu, v_t)
+    w, g, b = (x.cpu() for x in out)
+    assert torch.equal(w, ref[0]) and torch.equal(g, ref[1])
+    assert float((b - ref[2]).abs().max()) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_system_track_fetches_on_the_card(cuda):
+    """build_system of the system world's profile on the card, warmed up,
+    over the first 12 frames of its stream: every frame tracked after the
+    bootstrap makes 3 fetches, its extraction, BoW, both stages and the
+    preintegration included, and no host sync beyond them (the sync debug
+    mode's warnings counted)."""
+    import warnings
+    from pathlib import Path
+
+    from monoorbslam3_tpu_torch.config import build_system
+    from monoorbslam3_tpu_torch.runners.synth import SyntheticDataset
+
+    settings = Path(__file__).resolve().parents[1] / "settings" / "synthetic_vocab.yaml"
+    syst = build_system(str(settings), device=cuda)
+    syst.warmup()
+    ds = SyntheticDataset("circle:t_end=1,fps=20", syst.camera, syst.calib)
+    rows = []
+    for t, img, imu in ds.frames():
+        if len(rows) == 12:
+            break
+        n0, kf0 = syst.problems.syncs.n, syst.store.kf_created_total
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state = syst.track(t, img, imu)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        rows.append((state, syst.problems.syncs.n - n0, syncs,
+                     syst.store.kf_created_total > kf0))
+    syst.shutdown()
+    states = [r[0] for r in rows]
+    assert 2 in states
+    boot = states.index(2)
+    tracked = [r for r in rows[boot + 1:] if r[0] == 2 and not r[3]]
+    assert len(tracked) >= 5
+    for state, fetches, syncs, _ in tracked:
+        assert fetches == 3 and syncs == fetches, rows

@@ -14,9 +14,13 @@ from monoorbslam3_tpu_torch.backend.problems import Problems, _identity_edge
 from monoorbslam3_tpu_torch.backend.residuals import KfState
 from monoorbslam3_tpu_torch.models.camera import Fisheye, Pinhole
 from monoorbslam3_tpu_torch.models.imu import ImuCalib
+from monoorbslam3_tpu_torch.ops import vocab
 from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
+from monoorbslam3_tpu_torch.system import System
 
 TUM_VI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "settings", "tum_vi.yaml")
+VOCAB_PROFILE = os.path.join(os.path.dirname(TUM_VI), "synthetic_vocab.yaml")
+TOY_VOCAB = os.path.join(os.path.dirname(TUM_VI), "synthetic_voc.txt")
 ENTRY_POINTS = {
     "OrbExtractor": OrbExtractor.__init__,
     "Pinhole.create": Pinhole.create,
@@ -26,6 +30,13 @@ ENTRY_POINTS = {
     "config.build_imu_calib": config.build_imu_calib,
     "bench_window.build_problem": bench_window.build_problem,
     "Problems": Problems.__init__,
+    "System": System.__init__,
+    "config.build_system": config.build_system,
+    "config.build_vocabulary": config.build_vocabulary,
+    "vocab.load_dbow2_text": vocab.load_dbow2_text,
+    "Vocabulary.train": vocab.Vocabulary.train,
+    "Vocabulary.from_numpy": vocab.Vocabulary.from_numpy,
+    "convert.vocabulary": convert.vocabulary,
     **{f"convert.{n}": getattr(convert, n)
        for n in ("desc_to_torch", "tensor", "pinhole", "kf_state", "preint_edge", "ba_problem")},
 }
@@ -99,3 +110,33 @@ def test_tracker_and_mapper_run_on_the_facades_device(monkeypatch):
     valid = torch.ones(16, dtype=torch.bool)
     idx = twoview.draw_samples(valid, 4, tracker._ransac_gen)
     assert idx.device == valid.device
+
+
+def test_system_entry_points_raise_without_a_card(monkeypatch):
+    """`System`, `build_system`, `build_vocabulary`, the vocabulary loader
+    and `convert.vocabulary` raise without `device` where no card is
+    present; with device="cpu" they build on the CPU."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = Pinhole.create(fx=100.0, fy=100.0, cx=48.0, cy=32.0, width=96, height=64,
+                         device="cpu")
+    calib = ImuCalib.create(np.eye(3), np.zeros(3), 1e-4, 1e-3, 1e-5, 1e-3, device="cpu")
+    toy = vocab.load_dbow2_text(TOY_VOCAB, device="cpu")
+    nd, idf = toy.host_tables()
+    jax_like = SimpleNamespace(k=toy.k, levels=toy.levels, node_desc=nd,
+                               level_offset=toy.level_offset, word_idf=idf,
+                               group_level=toy.group_level)
+    settings = config.load_settings(VOCAB_PROFILE)
+    calls = [lambda **kw: System(cam, calib, config={"n_features": 16}, **kw),
+             lambda **kw: config.build_system(VOCAB_PROFILE, use_extractor=False, **kw),
+             lambda **kw: config.build_vocabulary(settings, base_dir=os.path.dirname(TUM_VI),
+                                                  **kw),
+             lambda **kw: vocab.load_dbow2_text(TOY_VOCAB, **kw),
+             lambda **kw: convert.vocabulary(jax_like, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+        out = call(device="cpu")
+        dev = out.device if hasattr(out, "device") else out.node_desc.device
+        assert dev == torch.device("cpu")

@@ -127,8 +127,14 @@ def test_dlt_homography_and_fundamental(scene):
 def test_scores_per_hypothesis(scene):
     """The H and F scores of every hypothesis of eight distinct indices,
     each scored by both packages on the JAX package's own matrices: within
-    1e-4 relative of the score scale; the inlier masks equal in 99.5% of
-    the entries (a match on its chi2 threshold may flip)."""
+    1e-4 relative of the score scale plus what the flipped matches add; the
+    inlier masks equal in 99.5% of the entries.
+
+    A match on its chi2 threshold may flip between the packages, and its
+    flag carries its whole term into the score (one term of the planar
+    scene's 187 hypotheses moved a score by 4.98, 1.2e-3 of the scale). So
+    each hypothesis may also differ by its flipped matches' contribution:
+    the larger of the two packages' scores over those matches alone."""
     p1, p2 = _normalized_samples(scene)
     d = scene["distinct"]
     xy1, xy2, v = (jnp.asarray(scene[k]) for k in ("xy1", "xy2", "valid"))
@@ -142,9 +148,16 @@ def test_scores_per_hypothesis(scene):
                         (jtv._score_fundamental, ttv._score_fundamental, F)):
         sj, okj = jax.vmap(lambda m: jfn(m, xy1, xy2, v))(jnp.asarray(M))
         st, okt = tfn(_t(M), _t(scene["xy1"]), _t(scene["xy2"]), _t(scene["valid"]))
-        sj = np.asarray(sj)
-        np.testing.assert_allclose(st.numpy(), sj, atol=1e-4 * np.abs(sj).max())
-        assert (okt.numpy() == np.asarray(okj)).mean() >= 0.995
+        sj, okj, okt = np.asarray(sj), np.asarray(okj), okt.numpy()
+        flipped = np.zeros(len(sj))
+        for h in np.flatnonzero((okt != okj).any(axis=1)):
+            f = okt[h] != okj[h]
+            fj, _ = jfn(jnp.asarray(M[h]), xy1, xy2, jnp.asarray(f))
+            ft, _ = tfn(_t(M[h]), _t(scene["xy1"]), _t(scene["xy2"]), _t(f))
+            flipped[h] = max(abs(float(fj)), abs(float(ft)))
+        err = np.abs(st.numpy() - sj)
+        assert np.all(err <= 1e-4 * np.abs(sj).max() + flipped), (err.max(), flipped.max())
+        assert (okt == okj).mean() >= 0.995
 
 
 def _hypothesis_sets_match(Rj, tj, Rt, tt):
