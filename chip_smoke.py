@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's nine paths, each with the kernel launch counts set to 0 just before
+port's eleven paths, each with the kernel launch counts set to 0 just before
 it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -59,7 +59,24 @@ it and read just after:
    held to the JAX package's run of the same world
    (`experiments/port_system_jax.py`) and the world's bounds; then a
    resume (`load_state` of its checkpoint into a fresh System, the next 40
-   frames) and an async run (`async_mapper=True`, 200 frames).
+   frames) and an async run (`async_mapper=True`, 200 frames);
+10. dataset CLI: the user's entry point over a dataset on disk,
+   `runners.datasets.main(["euroc", ...])` over 200 frames (10 s) of the
+   track map's world and stream written in the EuRoC layout (PNG,
+   times.txt, imu.txt; a child process renders them while paths 1-9 run),
+   at the EuRoC profile's width (752x480, 1,024 features) with the
+   reference-scale vocabulary, the three exports, the checkpoint and the
+   live viewer (where matplotlib imports): the native loader's decode and
+   prefetch, every frame through `System.track`, a sync mapper step per
+   keyframe (K1, K2, K3, K4's cluster route), held to the JAX package's
+   `main` on the same files (`experiments/port_dataset_cli_jax.py`);
+11. sharded BA: a one-rank NCCL process group and its ("dp",) DeviceMesh
+   (`parallel/multihost.py`); `parallel/sharded_ba.sharded_schur_ba` on
+   the bench window (K4's cluster route, one all_reduce an iteration)
+   against `schur_ba` and the JAX-CPU anchors, `Problems(mesh=)` through
+   the local BA on the seeded store against the JAX package's run, and
+   `parallel/frontend_dp.make_batch_extractor` over 8 frames (K1) against
+   one extraction a frame.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -99,14 +116,17 @@ but K4's large-D route, or when a store BA call leaves the JAX
 package's costs, outliers, init recovery or polish ATE, syncs inside its
 solve or fetches more than its count, or when the track map misses a gate
 of `track_map_checks`, or the system world one of `system_world_checks`,
-`system_resume_checks` or `system_async_checks`. Prints, before the last
-line, the
+`system_resume_checks` or `system_async_checks`, or the dataset CLI one of
+`dataset_cli_checks` (the native loader must have built: the path fails
+with the compiler's output otherwise), or the sharded BA one of
+`sharded_ba_checks`. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -1781,6 +1801,575 @@ def system_async_checks(sa):
     return fails
 
 
+# path 10, the dataset CLI: the user's entry point over a dataset on disk.
+# DATASET_FRAMES frames (10 s) of the track map's world and stream
+# (`track_map_stream`: the EuRoC profile's camera, 752x480, the frames'
+# noise, IMU at 200 Hz with the profile's noise and the store's bias),
+# written in the EuRoC layout (cam0/times.txt, cam0/data/%08d.png, imu.txt
+# as "t gx gy gz ax ay az") with the ground truth (TUM) and a settings file
+# beside them: settings/euroc.yaml with the rig's extrinsics (R_BC, T_BC)
+# in place of the EuRoC body's, which would point the camera at the sky of
+# this world (the track map's calibration makes the same swap,
+# `store_calibration`). The 1,024 features, the camera and the noise model
+# are the profile's, every tracker and mapper knob its default; the
+# vocabulary is the reference-scale one
+DATASET_FRAMES = 200
+DATASET_VOCAB = "synthetic_voc_100k.txt.gz"
+DATASET_SETTINGS_NAME = "settings.yaml"
+DATASET_GT_NAME = "gt.txt"
+DATASET_EXPORTS = {"--velocity-out": "velocity.txt", "--map-out": "map.pcd",
+                   "--depth-out": "depth.txt", "--save-state": "state.npz"}
+
+
+def png_gray8(u8):
+    """An 8-bit grayscale image [H, W] as PNG bytes (standard library only:
+    one IDAT of filter-0 rows through zlib, each chunk with its CRC)."""
+    import struct
+    import zlib
+
+    h, w = u8.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(u8, np.uint8)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def dataset_settings_text():
+    """settings/euroc.yaml with the rig's extrinsics (see DATASET_FRAMES)."""
+    import yaml
+
+    s = yaml.safe_load((SETTINGS / EUROC_PROFILE).read_text())
+    s["IMU"]["Rbc"] = [float(x) for x in np.asarray(R_BC).ravel()]
+    s["IMU"]["tbc"] = [float(x) for x in np.asarray(T_BC)]
+    return yaml.safe_dump(s, sort_keys=False)
+
+
+def write_euroc_dataset(root, n_frames=DATASET_FRAMES):
+    """Renders `track_map_stream` with the port's ImageWorld on the CPU into
+    `root` in the EuRoC layout, with DATASET_SETTINGS_NAME and the ground
+    truth (the camera's TUM trajectory at the frame times) beside it. The
+    images are the rendered floats clipped and cast to uint8."""
+    import torch
+
+    from monoorbslam3_tpu_torch.sim import ImageWorld
+    from monoorbslam3_tpu_torch.utils import lie
+
+    root = Path(root)
+    (root / "cam0" / "data").mkdir(parents=True, exist_ok=True)
+    (root / DATASET_SETTINGS_NAME).write_text(dataset_settings_text())
+    world = ImageWorld()
+    traj = world.traj
+    with open(root / "cam0" / "times.txt", "w") as ft, open(root / "imu.txt", "w") as fi, \
+            open(root / DATASET_GT_NAME, "w") as fg:
+        for i, t, img, imu in track_map_stream(world, host_camera(EUROC_PROFILE), n_frames):
+            u8 = np.clip(np.asarray(img), 0, 255).astype(np.uint8)
+            (root / "cam0" / "data" / ("%08d.png" % i)).write_bytes(png_gray8(u8))
+            ft.write(f"{t:.6f}\n")
+            for row in imu if imu is not None else ():
+                fi.write(" ".join(f"{x:.9f}" for x in row) + "\n")
+            R_wb = traj.R_wb(t)
+            R_wc = R_wb @ R_BC
+            t_wc = R_wb @ T_BC + traj.pos(t)
+            q = lie.rot_to_quat(torch.as_tensor(np.asarray(R_wc, np.float32))).numpy()
+            fg.write(f"{t:.6f} {t_wc[0]:.7f} {t_wc[1]:.7f} {t_wc[2]:.7f} "
+                     f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+    (root / "done").write_text(str(n_frames))
+
+
+# the child process of `DatasetWriter`
+_DATASET_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+chip_smoke.write_euroc_dataset({out!r}, {n!r})
+"""
+
+
+class DatasetWriter:
+    """`write_euroc_dataset(out, n_frames)` in a child process, started at
+    once so that the rendering (host numpy, ~0.4 s a frame) overlaps the
+    caller's other work; `wait()` returns the dataset's root, or raises if
+    the child failed."""
+
+    def __init__(self, out, n_frames=DATASET_FRAMES):
+        self.out = str(out)
+        code = _DATASET_CHILD.format(root=str(Path(__file__).resolve().parent), out=self.out,
+                                     n=n_frames)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", code])
+        self.seconds = None
+
+    def wait(self, timeout=900):
+        rc = self.proc.wait(timeout=timeout)
+        if self.seconds is None:
+            self.seconds = time.perf_counter() - self.t0
+        if rc != 0 or not (Path(self.out) / "done").exists():
+            raise RuntimeError(f"the dataset writer exited ({rc})")
+        return self.out
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+# the JAX package's run of the same dataset through its `runners.datasets.
+# main` on the CPU (experiments/port_dataset_cli_jax.py; PERF.md records the
+# run): its native loader's branch, 199 of 200 frames OK (the first
+# initializes), no LOST frame, the bootstrap at frame 1, the inertial init
+# at 3.85 s and imu_state 2 at the end, keyframe ATE 0.1203 m and scale
+# error 0.0507 (evaluate_sequences, max_dt 0.05, the exported trajectory
+# against the written ground truth), 41 keyframes, 3,438 points; 3 fetches
+# every tracked frame, 6-12 a mapper step (p50 8)
+JAX_DATASET_CLI = dict(n_frames=200, ok_frames=199, ok_ratio=0.995, n_lost=0, bootstrap_frame=1,
+                       imu_state=2, imu_init_t=3.85, kf_ate_m=0.12031200690070498,
+                       scale_err=0.05065981848540235, n_kf=41, n_points=3438,
+                       fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+                       fetches_per_mapper_step=dict(p50=8.0, mean=7.435897435897436, max=12.0))
+# the gates: the system world's (no LOST frame, OK ratio at least JAX's less
+# 0.05, the inertial init, keyframe ATE at most twice JAX's, keyframes
+# within 30%), the exports as tests/test_e2e_dataset_cli.py checks them
+# (velocity rows = keyframes, PCD POINTS = its data rows > 100, a depth
+# file), the checkpoint reloads, and on the card 3 fetches and 3 syncs a
+# tracked frame, no sync in the viewer's thread
+DC_MIN_PCD_POINTS = 100
+
+
+def dataset_cli(device, root, out_dir, log=print):
+    """The dataset CLI path on `device`: `runners.datasets.main(["euroc",
+    root/settings.yaml, root, traj, "--vocab", settings/DATASET_VOCAB,
+    the three exports, "--save-state", ..., "--viewer-dir", ...,
+    "--device", device])` over the dataset `write_euroc_dataset` wrote into
+    `root`, the viewer only where matplotlib imports (else the line says
+    why not). The System that `main` builds is metered as the system
+    world's (`config.build_system` wrapped: `FrameMeter`, `MapperMeter`,
+    syncs per thread by `SyncLedger`, SYSTEM_WORLD_REGIONS), and the launch
+    counts are set to 0 just before `main`. After it: the native loader's
+    branch (the path fails with the compiler's output if the loader did not
+    build), the consumer's wait on the prefetcher and a direct decode time
+    a frame, the keyframe ATE of the exported trajectory
+    (`evaluate_sequences`), the exports parsed, the checkpoint reloaded,
+    the viewer's PNGs, and `evaluation.plots.main` on the export (its
+    numbers alone, `compare_trajectories`, where matplotlib is missing).
+    Returns (records, mapper steps, summary)."""
+    import importlib
+    import importlib.util
+
+    import torch
+
+    from monoorbslam3_tpu_torch import config, native
+    from monoorbslam3_tpu_torch.evaluation import plots
+    from monoorbslam3_tpu_torch.evaluation.metrics import (evaluate_sequences, load_tum,
+                                                           load_velocity_file)
+    from monoorbslam3_tpu_torch.models.checkpoint import load_map
+    from monoorbslam3_tpu_torch.ops import cuda_lib
+    from monoorbslam3_tpu_torch.runners import datasets
+
+    root, out_dir = Path(root), Path(out_dir)
+    branch = native.branch("dataloader")
+    if branch != "native":
+        raise RuntimeError("dataset CLI: the native dataset loader did not build:\n"
+                           + native.build_errors.get("dataloader", "MONOSLAM_NO_NATIVE is set"))
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    viewer_dir = out_dir / "viewer"
+    viewer_note = None
+    if importlib.util.find_spec("matplotlib") is None:
+        viewer_dir, viewer_note = None, "matplotlib does not import on this host"
+    ledger = SyncLedger(on_card)
+    built, loaded = {}, {}
+    inner_build, inner_euroc = config.build_system, datasets.euroc_dataset
+
+    def build_system(*a, **k):
+        syst = inner_build(*a, **k)
+        count = lambda: syst.problems.syncs.n
+        meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
+        syst.mapper.process = meter
+        frames = FrameMeter(syst, meter, count, sync, ledger.n, log=log)
+        syst.track = frames
+        built.update(system=syst, meter=meter, frames=frames)
+        _zero(cuda_lib.launches)  # the path starts here
+        return syst
+
+    def euroc_dataset(path):
+        loaded["dataset"] = inner_euroc(path)
+        return loaded["dataset"]
+
+    traj = out_dir / "dataset_trajectory.txt"
+    files = {flag: out_dir / f"dataset_{name}" for flag, name in DATASET_EXPORTS.items()}
+    argv = ["euroc", str(root / DATASET_SETTINGS_NAME), str(root), str(traj),
+            "--vocab", str(SETTINGS / DATASET_VOCAB), "--device", str(device)]
+    for flag, path in files.items():
+        argv += [flag, str(path)]
+    if viewer_dir is not None:
+        argv += ["--viewer-dir", str(viewer_dir)]
+    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
+               for m, attr, name in SYSTEM_WORLD_REGIONS]
+    config.build_system, datasets.euroc_dataset = build_system, euroc_dataset
+    t0 = time.perf_counter()
+    try:
+        with ledger.recording():
+            datasets.main(argv)
+    finally:
+        config.build_system, datasets.euroc_dataset = inner_build, inner_euroc
+        for r in restore:
+            r()
+    sync()
+    run_s = time.perf_counter() - t0
+    syst, meter, frames = built["system"], built["meter"], built["frames"]
+    launches = dict(cuda_lib.launches)
+    dataset = loaded["dataset"]
+    n_frames = len(frames.records)
+    viewer_syncs = (ledger.by_thread[syst.viewer._thread.ident]
+                    if syst.viewer is not None else None)
+    # a direct decode of the first 20 frames, on this thread
+    paths = [Path(dataset.image_dir) / (dataset.image_pattern % i) for i in range(20)]
+    t1 = time.perf_counter()
+    for p in paths:
+        native.load_gray(str(p))
+    decode_ms = 1e3 * (time.perf_counter() - t1) / len(paths)
+
+    gt = str(root / DATASET_GT_NAME)
+    (ate,) = evaluate_sequences([("dataset", str(traj), gt)], max_dt=SYSTEM_WORLD_MAX_DT,
+                                log=lambda line: None)
+    summary = system_world_summary(frames.records, meter.steps, syst, ate)
+    t_kf, _, _ = load_tum(str(traj))
+    t_v, v, _, _ = load_velocity_file(str(files["--velocity-out"]))
+    pcd = files["--map-out"].read_text().splitlines()
+    pcd_declared = next(int(line.split()[1]) for line in pcd if line.startswith("POINTS"))
+    pcd_rows = len(pcd) - (pcd.index("DATA ascii") + 1)
+    depth_lines = len(files["--depth-out"].read_text().splitlines())
+    store, _ = load_map(str(files["--save-state"]))
+    pngs = sorted(os.listdir(viewer_dir)) if viewer_dir is not None else []
+    if viewer_dir is not None:
+        plot_out = str(out_dir / "dataset_plot.png")
+        results = plots.main([gt, str(traj), "-o", plot_out, "--labels", "port",
+                              "--max-dt", str(SYSTEM_WORLD_MAX_DT)])
+    else:
+        _, _, results = plots.compare_trajectories(gt, [str(traj)], ["port"],
+                                                   max_dt=SYSTEM_WORLD_MAX_DT)
+    summary.update(
+        native_branch={"dataloader": branch, "map_ops": native.branch("map_ops")},
+        run_s=run_s, launches=launches, region_syncs=dict(ledger.counts),
+        sync_sites=dict(ledger.sites), viewer=viewer_note or "ran",
+        viewer_syncs=viewer_syncs,
+        viewer_pngs={"frame": sum(p.startswith("frame_") for p in pngs),
+                     "map": sum(p.startswith("map_") for p in pngs)},
+        viewer_error=(repr(syst.viewer.last_error)
+                      if syst.viewer is not None and syst.viewer.last_error else None),
+        prefetch_wait_ms=1e3 * dataset.prefetcher.wait_s / max(n_frames, 1),
+        decode_ms=decode_ms, trajectory_rows=len(t_kf), velocity_rows=len(t_v),
+        velocity_finite=bool(np.isfinite(v).all()), pcd_points=pcd_declared,
+        pcd_rows=pcd_rows, depth_lines=depth_lines,
+        checkpoint_kf=store.n_keyframes(), checkpoint_points=int(store.n_points()),
+        plots={label: dict(rmse=float(r["rmse"]), scale=float(r.get("scale", 1.0)),
+                           n=int(r.get("n_matches", 0))) for label, r in results})
+    return frames.records, meter.steps, summary
+
+
+def dataset_cli_checks(dc, records, steps, on_card=True):
+    """The dataset CLI's gates on a `dataset_cli` run against
+    JAX_DATASET_CLI (the fetch, sync and viewer-thread gates only on the
+    card, where they are counted). Returns the failures."""
+    ref, fails = JAX_DATASET_CLI, []
+    if dc["native_branch"]["dataloader"] != "native":
+        fails.append(f"dataset CLI: the loader took the {dc['native_branch']} branch")
+    if dc["n_lost"]:
+        fails.append(f"dataset CLI: {dc['n_lost']} LOST frames")
+    ok_min = ref["ok_ratio"] - SW_OK_SLACK
+    if not dc["ok_ratio"] >= ok_min:
+        fails.append(f"dataset CLI: OK ratio {dc['ok_ratio']} < {ok_min}")
+    if dc["imu_state"] < 1:
+        fails.append("dataset CLI: the inertial init never fired")
+    ate_max = SW_ATE_FACTOR * ref["kf_ate_m"]
+    if not dc["kf_ate_m"] <= ate_max:
+        fails.append(f"dataset CLI: keyframe ATE {dc['kf_ate_m']} m > {ate_max} m")
+    if abs(dc["n_kf"] - ref["n_kf"]) > SW_KF_RTOL * ref["n_kf"]:
+        fails.append(f"dataset CLI: {dc['n_kf']} keyframes, JAX's {ref['n_kf']}")
+    if not (dc["trajectory_rows"] == dc["velocity_rows"] == dc["n_kf"] and dc["velocity_finite"]):
+        fails.append(f"dataset CLI: {dc['trajectory_rows']} trajectory rows, "
+                     f"{dc['velocity_rows']} velocity rows for {dc['n_kf']} keyframes")
+    if not (dc["pcd_points"] == dc["pcd_rows"] and dc["pcd_points"] > DC_MIN_PCD_POINTS):
+        fails.append(f"dataset CLI: the PCD declares {dc['pcd_points']} points and holds "
+                     f"{dc['pcd_rows']}")
+    if not dc["depth_lines"]:
+        fails.append("dataset CLI: an empty depth file")
+    if dc["checkpoint_kf"] != dc["n_kf"]:
+        fails.append(f"dataset CLI: the checkpoint reloads {dc['checkpoint_kf']} keyframes")
+    if dc["viewer"] == "ran" and not (dc["viewer_pngs"]["frame"] and dc["viewer_pngs"]["map"]):
+        fails.append(f"dataset CLI: the viewer wrote {dc['viewer_pngs']} "
+                     f"({dc['viewer_error']})")
+    if not on_card:
+        return fails
+    for key in ("fetches_per_tracked_frame", "fetches_per_mapper_step"):
+        got, lim = dc[key], ref[key]
+        if got is None or got["max"] > lim["max"]:
+            fails.append(f"dataset CLI: {key} {got}, JAX's {lim}")
+    for name, n in dc["region_syncs"].items():
+        if n and name != "two-view bootstrap":
+            fails.append(f"dataset CLI: {n} host syncs inside the {name}")
+    boot = dc["bootstrap_frame"]
+    for r in records[boot + 1:] if boot is not None else []:
+        if r["state"] == 2 and r["syncs"] > r["fetches"]:
+            fails.append(f"dataset CLI: frame {r['frame']} synced {r['syncs']} times for "
+                         f"{r['fetches']} fetches")
+    for m in steps:
+        if m["syncs"] > m["fetches"]:
+            fails.append(f"dataset CLI: the mapper step of KF {m['kf']} synced {m['syncs']} "
+                         f"times for {m['fetches']} fetches")
+    if dc["viewer_syncs"]:
+        fails.append(f"dataset CLI: {dc['viewer_syncs']} host syncs in the viewer's thread")
+    return fails
+
+
+# path 11, the sharded BA: the distributed solver on a one-rank group (the
+# card's machine has one card, and NCCL refuses two ranks on one card):
+# `sharded_schur_ba` on the bench window (BA_ITERS iterations) held to the
+# port's `schur_ba` in the same run and to the JAX-CPU anchors (JAX_BA_COST0,
+# JAX_BA_COST["flat_deferred"]) at the window BA's tolerances;
+# `Problems(mesh=)` through the local BA on a copy of the seeded 96-KF store
+# against JAX_STORE's bounds; `make_batch_extractor` over SHARDED_FRAMES
+# frames, bit-identical to one extraction a frame
+SHARDED_FRAMES = 8
+
+
+def sharded_ba(device, out_dir=None, images=None, n_runs=15, log=print):
+    """The sharded BA path on `device` (the CPU rehearsal passes "cpu": a
+    one-rank gloo group). Joins a one-rank process group through
+    `parallel.multihost.initialize` (a file store under out_dir; NCCL on the
+    card) and lays the ("dp",) mesh over it; destroys the group at the end.
+
+    1. `sharded_schur_ba` on the bench window: one solve under the sync
+       debug mode (syncs inside, K4 launches, `all_reduce` calls), then the
+       wall time of `n_runs` solves, each ending in its fetch and a
+       synchronize; `schur_ba` (flat, deferred) on the same window timed in
+       turns with it.
+    2. `Problems(mesh=mesh).local_bundle_adjustment` on a copy of the seeded
+       96-KF store, counted as store_ba counts a call.
+    3. `make_batch_extractor` (the EuRoC profile's extractor) over
+       `images` ([SHARDED_FRAMES, H, W]; rendered frames by default), held
+       bit for bit to one extraction a frame; its K1 launches.
+
+    Returns a summary dict; "launches" holds the path's own launches (the
+    sharded solves and the batch extractor, not the runs they are held
+    to)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.backend.problems import Problems
+    from monoorbslam3_tpu_torch.backend.solver import schur_ba
+    from monoorbslam3_tpu_torch.bench_window import build_problem
+    from monoorbslam3_tpu_torch.models.imu import ImuBuffer, ImuCalib
+    from monoorbslam3_tpu_torch.models.map_state import MapStore
+    from monoorbslam3_tpu_torch.ops import cuda_lib
+    from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
+    from monoorbslam3_tpu_torch.parallel import frontend_dp, multihost
+    from monoorbslam3_tpu_torch.parallel import sharded_ba as sb
+    from monoorbslam3_tpu_torch.utils.fetch import SyncCounter, fetch
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_", dir=out_dir)
+    multihost.initialize(coordinator=f"file://{tmp.name}/store", num_processes=1,
+                         process_id=0, device_type=dev.type)
+    n_reduce = [0]
+    inner_reduce = dist.all_reduce
+
+    def all_reduce(*a, **k):
+        n_reduce[0] += 1
+        return inner_reduce(*a, **k)
+
+    dist.all_reduce = all_reduce
+    # the path's launches: the sharded solves and the batch extractor, not
+    # the schur_ba and single-frame runs they are compared with
+    path = collections.Counter()
+
+    @contextlib.contextmanager
+    def on_path():
+        b = dict(cuda_lib.launches)
+        try:
+            yield
+        finally:
+            path.update({k: cuda_lib.launches[k] - b[k] for k in b})
+
+    try:
+        mesh = multihost.global_mesh(("dp",), device_type=dev.type)
+        out = dict(mesh=str(mesh), process_info=multihost.process_info())
+
+        # 1. the bench window
+        problem, cam = build_problem(seed=0, device=dev)
+        R_cb, t_cb = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        sharded, dropped = sb.shard_problem_by_point(problem, 1)
+        syncs = SyncCounter()
+        solve = lambda: sb.sharded_schur_ba(sharded, cam, R_cb, t_cb, mesh, n_iters=BA_ITERS)
+        single = lambda: schur_ba(problem, cam, R_cb, t_cb, n_iters=BA_ITERS)
+        with on_path():
+            fetch(solve()[2]["cost"], syncs)  # warm-up
+        fetch(single()[2]["cost"], syncs)
+        watch = SyncWatch()
+        before, r0 = dict(cuda_lib.launches), n_reduce[0]
+        with on_path(), watch(on_card):
+            kf, pts, info = solve()
+        reduces = n_reduce[0] - r0
+        k4 = {k: cuda_lib.launches[k] - before[k] for k in ("chol_solve", "chol_solve_l2")}
+        kf1, pts1, info1 = single()
+        host = fetch(dict(cost0=info["cost0"], cost=info["cost"], t=kf.t_wb, R=kf.R_wb, pts=pts,
+                          cost1=info1["cost"], t1=kf1.t_wb, R1=kf1.R_wb, pts1=pts1), syncs)
+        times = {"sharded": [], "single": []}
+        for i in range(n_runs):
+            for name in (("sharded", "single") if i % 2 == 0 else ("single", "sharded")):
+                with on_path() if name == "sharded" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    fetch((solve if name == "sharded" else single)()[2]["cost"], syncs)
+                    sync()
+                    times[name].append(1e3 * (time.perf_counter() - t0))
+        out["window"] = dict(
+            cost0=float(host["cost0"]), cost=float(host["cost"]),
+            single_cost=float(host["cost1"]), dropped=int(dropped),
+            pose_t_max_diff=float(np.abs(host["t"] - host["t1"]).max()),
+            pose_R_max_diff=float(np.abs(host["R"] - host["R1"]).max()),
+            points_max_diff=float(np.abs(host["pts"] - host["pts1"]).max()),
+            finite=bool(np.isfinite(host["pts"]).all()),
+            syncs_in_solve=watch.n, sync_sites=dict(watch.sites), k4_launches=k4,
+            all_reduce_per_solve=reduces, all_reduce_per_iter=(reduces - 2) / BA_ITERS,
+            solve_ms=times["sharded"], single_ms=times["single"],
+            median_solve_ms=float(np.median(times["sharded"])) if n_runs else None,
+            median_single_ms=float(np.median(times["single"])) if n_runs else None)
+        log(json.dumps({"sharded_ba": "window"} | out["window"]))
+
+        # 2. Problems(mesh=) through the local BA on the seeded store
+        settings = config.load_settings(SETTINGS / EUROC_PROFILE)
+        pr = Problems(config.build_camera(settings, device=dev),
+                      store_calibration(ImuCalib, device=dev), mesh=mesh, device=dev)
+        pr.warm_solvers()
+        base, truth = seeded_store(MapStore, ImuBuffer)
+        st = copy.deepcopy(base)
+        n_sharded = [0]
+        inner_solve = pr._solve_sharded
+
+        def solve_sharded(*a, **k):
+            n_sharded[0] += 1
+            return inner_solve(*a, **k)
+
+        pr._solve_sharded = solve_sharded
+        watch = SyncWatch()
+        inner_ssb = sb.sharded_schur_ba
+
+        def watched(*a, **k):
+            with watch(on_card):
+                return inner_ssb(*a, **k)
+
+        sb.sharded_schur_ba = watched
+        before, n0 = dict(cuda_lib.launches), pr.syncs.n
+        t0 = time.perf_counter()
+        try:
+            with on_path():
+                res = pr.local_bundle_adjustment(st, st.keyframe_ids()[-1])
+                sync()
+        finally:
+            sb.sharded_schur_ba = inner_ssb
+        out["store_local_ba"] = dict(
+            cost0=res["cost0"], cost=res["cost"], n_outliers=res["n_outliers"],
+            n_points=res["n_points"], n_kf=len(res["ids"]), fetches=pr.syncs.n - n0,
+            sharded_calls=n_sharded[0], syncs_in_solve=watch.n, sync_sites=dict(watch.sites),
+            k4_launches={k: cuda_lib.launches[k] - before[k]
+                         for k in ("chol_solve", "chol_solve_l2")},
+            wall_ms=1e3 * (time.perf_counter() - t0),
+            finite=bool(np.isfinite(st.kf_t).all() and np.isfinite(st.pt_xyz).all()))
+        log(json.dumps({"sharded_ba": "store local BA"} | out["store_local_ba"]))
+
+        # 3. the batch extractor
+        H, W = int(settings["Camera"]["Height"]), int(settings["Camera"]["Width"])
+        ext = OrbExtractor(H, W, n_features=N_FEAT, n_levels=N_LEVELS, scale=SCALE, device=dev)
+        if images is None:
+            from monoorbslam3_tpu_torch.sim import ImageWorld
+
+            world, hc = ImageWorld(), host_camera(EUROC_PROFILE)
+            images = np.stack([world.render(i / FPS, hc, R_BC, T_BC, rng=np.random.default_rng(i))
+                               for i in range(SHARDED_FRAMES)]).astype(np.float32)
+        run = frontend_dp.make_batch_extractor(ext, mesh)
+        with on_path():
+            run(images[:1])  # warm-up
+            sync()
+        k0 = cuda_lib.launches["gather_patches"]
+        with on_path():
+            batched = run(images)
+            sync()
+        k1 = cuda_lib.launches["gather_patches"] - k0
+        singles = [ext(images[i]) for i in range(len(images))]
+        same = {key: bool(torch.equal(batched[key], torch.stack([o[key] for o in singles])))
+                for key in batched}
+        out["batch_extract"] = dict(frames=len(images), k1_launches=k1, identical=same,
+                                    n_valid=int(batched["valid"].sum()))
+        log(json.dumps({"sharded_ba": "batch extract"} | out["batch_extract"]))
+        out["launches"] = {k: path[k] for k in cuda_lib.launches}
+    finally:
+        dist.all_reduce = inner_reduce
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return out
+
+
+def sharded_ba_checks(shb, on_card=True):
+    """The sharded BA path's gates: the bench window's costs within the
+    window BA's tolerances of the JAX-CPU anchors and of `schur_ba`'s cost,
+    poses within 2e-3 of it (tests/test_sharded_ba.py's bound), no sync in
+    the solve, one all_reduce an iteration; the store's local BA within
+    JAX_STORE's bounds, through the sharded solver; the batch extractor
+    bit-identical with one K1 launch a frame. Returns the failures."""
+    fails = []
+    w = shb["window"]
+    if abs(w["cost0"] - JAX_BA_COST0) > BA_COST0_RTOL * JAX_BA_COST0:
+        fails.append(f"sharded BA: cost0 {w['cost0']} vs {JAX_BA_COST0}")
+    ref = JAX_BA_COST["flat_deferred"]
+    for key in ("cost", "single_cost"):
+        if abs(w[key] - ref) > BA_COST_RTOL * ref:
+            fails.append(f"sharded BA: {key} {w[key]} vs {ref}")
+    if not (w["pose_t_max_diff"] <= 2e-3 and w["pose_R_max_diff"] <= 2e-3 and w["finite"]):
+        fails.append(f"sharded BA: poses {w['pose_t_max_diff']}, {w['pose_R_max_diff']} from "
+                     f"schur_ba's, finite {w['finite']}")
+    if w["all_reduce_per_iter"] != 1:
+        fails.append(f"sharded BA: {w['all_reduce_per_solve']} all_reduce calls a solve")
+    r = shb["store_local_ba"]
+    jr = JAX_STORE["local_bundle_adjustment"]
+    for key, tol in (("cost0", BA_COST0_RTOL), ("cost", BA_COST_RTOL)):
+        if not abs(r[key] - jr[key]) <= tol * jr[key]:
+            fails.append(f"sharded store BA: {key} {r[key]} vs {jr[key]}")
+    if abs(r["n_outliers"] - jr["n_outliers"]) > max(1.0, STORE_OUTLIER_RTOL * jr["n_outliers"]):
+        fails.append(f"sharded store BA: {r['n_outliers']} outliers vs {jr['n_outliers']}")
+    if r["n_points"] != jr["n_points"] or not r["finite"] or r["sharded_calls"] != 1:
+        fails.append(f"sharded store BA: {r['n_points']} points (JAX {jr['n_points']}), finite "
+                     f"{r['finite']}, {r['sharded_calls']} sharded solves")
+    b = shb["batch_extract"]
+    if not all(b["identical"].values()) or b["n_valid"] <= SHARDED_FRAMES:
+        fails.append(f"batch extractor: {b}")
+    if not on_card:
+        return fails
+    if w["syncs_in_solve"] or r["syncs_in_solve"]:
+        fails.append(f"sharded BA: host syncs inside the solve {w['sync_sites']} "
+                     f"{r['sync_sites']}")
+    if w["k4_launches"] != {"chol_solve": BA_ITERS, "chol_solve_l2": 0}:
+        fails.append(f"sharded BA: K4 launches {w['k4_launches']}")
+    if r["k4_launches"] != {"chol_solve": STORE_ITERS["local_bundle_adjustment"],
+                            "chol_solve_l2": 0}:
+        fails.append(f"sharded store BA: K4 launches {r['k4_launches']}")
+    if r["fetches"] != jr["fetches"] - 1:
+        fails.append(f"sharded store BA: {r['fetches']} fetches")
+    if b["k1_launches"] != b["frames"]:
+        fails.append(f"batch extractor: {b['k1_launches']} K1 launches for {b['frames']} frames")
+    return fails
+
+
 class SyncWatch:
     """Counts the host syncs that PyTorch's sync debug mode reports inside
     `with watch(on_card):` blocks (nothing is counted off the card), and
@@ -2540,6 +3129,10 @@ def main(argv=None) -> int:
         print("sass: cuobjdump did not run; the tensor-core check is not made")
     for name, ops in (tc_ops or {}).items():
         print(f"sass: {name}: {json.dumps(ops)}")
+    # path 10's dataset, rendered by a child process while paths 1-9 run
+    ds_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_")
+    writer = DatasetWriter(Path(ds_tmp.name) / "euroc")
+    atexit.register(writer.close)  # the child ends with this process, whatever happens
 
     # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
@@ -2806,6 +3399,89 @@ def main(argv=None) -> int:
           f"{sa['imu_init_t']} s, queue drained {sa['queue_drained']}")
     sw_tmp.cleanup()
 
+    # -- path 10, the dataset CLI: runners.datasets.main over the disk dataset -
+    # (the counts are set to 0 when main has built its System)
+    root = writer.wait()
+    print(f"dataset: {DATASET_FRAMES} frames written in {writer.seconds:.1f} s by a child "
+          f"process (EuRoC layout, {sum(1 for _ in (Path(root) / 'cam0' / 'data').iterdir())} "
+          f"PNGs)")
+    t0 = time.perf_counter()
+    with _Capture(match_pallas, "_match_rows_cuda") as dc_k2, \
+            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as dc_k3, \
+            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as dc_k1:
+        dc_records, dc_steps, dc = dataset_cli(dev, root, ds_tmp.name, log=lambda line: None)
+    torch.cuda.synchronize()
+    dc_launches = dc["launches"]
+    print(f"dataset CLI: {len(dc_records)} frames through runners.datasets.main in "
+          f"{dc['run_s']:.1f} s host ({time.perf_counter() - t0:.1f} s with the checks); "
+          f"launches {json.dumps(dc_launches)}")
+    print(f"dataset CLI native branch: {json.dumps(dc['native_branch'])}; decode "
+          f"{dc['decode_ms']:.2f} ms a frame (load_gray on this thread), the tracker waited "
+          f"{dc['prefetch_wait_ms']:.3f} ms a frame on the prefetcher")
+    print(f"dataset CLI viewer: {dc['viewer']}; PNGs {json.dumps(dc['viewer_pngs'])}; syncs in "
+          f"its thread {dc['viewer_syncs']}; last error {dc['viewer_error']}")
+    print("dataset CLI states:", "".join(str(r["state"]) for r in dc_records))
+    print("dataset CLI fetches / syncs a frame:", [(r["fetches"], r["syncs"]) for r in dc_records])
+    print("dataset CLI mapper steps (frame, KF, ms, fetches, syncs):",
+          [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+           for m in dc_steps])
+    print("dataset CLI summary:", json.dumps(dc))
+    print(f"dataset CLI against the JAX package on the CPU: {json.dumps(JAX_DATASET_CLI)}")
+    print(f"dataset CLI ({card}): OK {dc['ok_frames']}/{dc['n_frames']} (JAX's "
+          f"{JAX_DATASET_CLI['ok_frames']}), LOST {dc['n_lost']}, init at {dc['imu_init_t']} s "
+          f"(JAX's {JAX_DATASET_CLI['imu_init_t']}), keyframe ATE {dc['kf_ate_m']:.5f} m (JAX's "
+          f"{JAX_DATASET_CLI['kf_ate_m']:.5f}), keyframes {dc['n_kf']} (JAX's "
+          f"{JAX_DATASET_CLI['n_kf']}), points {dc['n_points']} (JAX's "
+          f"{JAX_DATASET_CLI['n_points']}); frame p50 {dc['frame_ms']['p50']:.1f} ms, p99 "
+          f"{dc['frame_ms']['p99']:.1f} ms; mapper step p50 {dc['mapper_ms']['p50']:.1f} ms")
+    for label, a in zip(K2_CALLS, dc_k2.calls):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 dataset CLI {label}")
+    for a in dc_k3.calls:
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError("K3 on the dataset CLI's searches disagrees with its plain version")
+    for a in dc_k1.calls:
+        got = pallas_kernels.gather_patches_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+            raise RuntimeError("K1 on the dataset CLI's last frame disagrees with its plain version")
+    print(f"dataset CLI: K2 on the last frame's {len(dc_k2.calls)} launches, K3 on the last "
+          f"{len(dc_k3.calls)} searches, K1 on the last frame: bit-identical")
+
+    # -- path 11, the sharded BA on a one-rank NCCL group ----------------------
+    from monoorbslam3_tpu_torch import native as native_mod
+
+    data_dir = Path(root) / "cam0" / "data"
+    ds_images = np.stack([native_mod.load_gray(str(data_dir / ("%08d.png" % i)))
+                          for i in range(SHARDED_FRAMES)])
+    t0 = time.perf_counter()
+    shb = sharded_ba(dev, ds_tmp.name, images=ds_images, log=lambda line: None)
+    torch.cuda.synchronize()
+    shb_launches = shb["launches"]
+    w, sl, be = shb["window"], shb["store_local_ba"], shb["batch_extract"]
+    print(f"sharded BA ({time.perf_counter() - t0:.1f} s): {shb['mesh']}, "
+          f"{json.dumps(shb['process_info'])}")
+    print(f"sharded BA window ({card}): cost0 {w['cost0']:.4f} (JAX-CPU {JAX_BA_COST0}), cost "
+          f"{w['cost']:.4f} (JAX-CPU {JAX_BA_COST['flat_deferred']}, schur_ba here "
+          f"{w['single_cost']:.4f}); poses within {w['pose_t_max_diff']:.2e} m / "
+          f"{w['pose_R_max_diff']:.2e} of schur_ba's; {w['all_reduce_per_iter']} all_reduce an "
+          f"iteration ({w['all_reduce_per_solve']} a solve); host syncs inside the solve "
+          f"{w['syncs_in_solve']}; K4 {json.dumps(w['k4_launches'])}; median solve "
+          f"{w['median_solve_ms']:.2f} ms against schur_ba's {w['median_single_ms']:.2f} ms "
+          f"(in turns, {len(w['solve_ms'])} each)")
+    print(f"sharded BA store local BA ({card}): cost0 {sl['cost0']:.4f} (JAX-CPU "
+          f"{JAX_STORE['local_bundle_adjustment']['cost0']}), cost {sl['cost']:.4f} (JAX-CPU "
+          f"{JAX_STORE['local_bundle_adjustment']['cost']}), {sl['n_outliers']} outliers, "
+          f"{sl['n_points']} points, {sl['sharded_calls']} sharded solve, fetches "
+          f"{sl['fetches']}, host syncs inside the solve {sl['syncs_in_solve']}, K4 "
+          f"{json.dumps(sl['k4_launches'])}, {sl['wall_ms']:.1f} ms")
+    print(f"sharded BA batch extractor: {be['frames']} frames, {be['k1_launches']} K1 launches, "
+          f"bit-identical to one extraction a frame {json.dumps(be['identical'])}")
+    ds_tmp.cleanup()
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -2886,6 +3562,8 @@ def main(argv=None) -> int:
                         launches_vi_drive=vi_launches["gather_patches"],
                         launches_track_map=tm_launches["gather_patches"],
                         launches_system_world=sw_launches["gather_patches"],
+                        launches_dataset_cli=dc_launches["gather_patches"],
+                        launches_sharded_ba=shb_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -2954,6 +3632,8 @@ def main(argv=None) -> int:
                         launches_vi_drive=vi_launches["match_rows"],
                         launches_track_map=tm_launches["match_rows"],
                         launches_system_world=sw_launches["match_rows"],
+                        launches_dataset_cli=dc_launches["match_rows"],
+                        launches_sharded_ba=shb_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -3007,6 +3687,8 @@ def main(argv=None) -> int:
                         launches_fisheye_search=fish_launches["hamming"],
                         launches_track_map=tm_launches["hamming"],
                         launches_system_world=sw_launches["hamming"],
+                        launches_dataset_cli=dc_launches["hamming"],
+                        launches_sharded_ba=shb_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -3148,6 +3830,8 @@ def main(argv=None) -> int:
                         launches_store_ba=store_launches["chol_solve"],
                         launches_track_map=tm_launches["chol_solve"],
                         launches_system_world=sw_launches["chol_solve"],
+                        launches_dataset_cli=dc_launches["chol_solve"],
+                        launches_sharded_ba=shb_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -3161,6 +3845,8 @@ def main(argv=None) -> int:
                         launches_store_ba=store_launches["chol_solve_l2"],
                         launches_track_map=tm_launches["chol_solve_l2"],
                         launches_system_world=sw_launches["chol_solve_l2"],
+                        launches_dataset_cli=dc_launches["chol_solve_l2"],
+                        launches_sharded_ba=shb_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -3217,7 +3903,13 @@ def main(argv=None) -> int:
                             ("system world", "gather_patches", sw_launches),
                             ("system world", "match_rows", sw_launches),
                             ("system world", "hamming", sw_launches),
-                            ("system world", "chol_solve", sw_launches)):
+                            ("system world", "chol_solve", sw_launches),
+                            ("dataset CLI", "gather_patches", dc_launches),
+                            ("dataset CLI", "match_rows", dc_launches),
+                            ("dataset CLI", "hamming", dc_launches),
+                            ("dataset CLI", "chol_solve", dc_launches),
+                            ("sharded BA", "gather_patches", shb_launches),
+                            ("sharded BA", "chol_solve", shb_launches)):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3237,6 +3929,8 @@ def main(argv=None) -> int:
         failures.append("system world: the node-gated reference-keyframe match launched no K2")
     failures += system_resume_checks(resume_records)
     failures += system_async_checks(sa)
+    failures += dataset_cli_checks(dc, dc_records, dc_steps)
+    failures += sharded_ba_checks(shb)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

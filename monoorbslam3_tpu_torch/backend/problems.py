@@ -233,8 +233,14 @@ class Problems:
     `device` is the card unless the caller names another; the camera and
     the calibration must live on it. `syncs` counts the blocking reads of
     every call: one per visual window BA, two per inertial one (the edges,
-    then the solve), one per frame LM. The sharded window BA (`mesh`) is
-    not ported: only mesh=None is accepted."""
+    then the solve), one per frame LM.
+
+    `mesh`: a `torch.distributed` DeviceMesh with a "dp" dimension, of the
+    façade's device type. With one, every window BA goes through the
+    sharded solver (`_solve_sharded`, `parallel/sharded_ba.py`: landmarks
+    and observations split by point over the ranks, the reduced camera
+    system all-reduced); every rank of the mesh must make the same calls
+    with the same store (one process per rank, see that module)."""
 
     INIT_MAX_REL_SIGMA = 0.08  # scale-acceptance gate of the inertial init
 
@@ -244,10 +250,10 @@ class Problems:
                  full_k: int = 96, full_p: int = 4096, full_opk: int = 192,
                  full_polish_mode: str = "hybrid",
                  window_layout: str = "flat", device=CARD):
-        if mesh is not None:
-            raise NotImplementedError("Problems: the sharded window BA (mesh) is not ported; "
-                                      "pass mesh=None")
         self.device = resolve(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"Problems: a {mesh.device_type} mesh for a façade on {self.device}")
+        self.mesh = mesh
         for name, dev in (("camera", camera.device), ("calib", calib.cov_noise.device)):
             if dev.type != self.device.type:
                 raise ValueError(f"Problems: the {name} lies on {dev}, not on {self.device}")
@@ -580,10 +586,13 @@ class Problems:
                 pose_dofs=pose_dofs, vb_dofs=vb_dofs, priors=priors, caps=caps,
                 grouped=grouped, edge_bufs=edge_bufs, fixed_vb_free=fixed_vb_free)
         problem = _upload_problem(host, self.device)
-        K_cap = host.kf_dof.shape[0]
-        opk = host.obs_kf.shape[0] // K_cap if grouped else 0
-        kf, pts, info = schur_ba(problem, self.camera, self.calib.R_cb, self.calib.t_cb,
-                                 n_iters=n_iters, grouped_obs=opk)
+        if self.mesh is not None:
+            kf, pts, info = self._solve_sharded(problem, host, n_iters)
+        else:
+            K_cap = host.kf_dof.shape[0]
+            opk = host.obs_kf.shape[0] // K_cap if grouped else 0
+            kf, pts, info = schur_ba(problem, self.camera, self.calib.R_cb, self.calib.t_cb,
+                                     n_iters=n_iters, grouped_obs=opk)
         kf, pts, info = fetch((kf, pts, info), self.syncs)
         kf = KfState(*kf)
         n_ie = int(host.ie_valid.sum())
@@ -596,6 +605,27 @@ class Problems:
         out["n_ie"] = n_ie
         out["pids"] = pids  # solved point ids (callers propagate the rest)
         return out
+
+    def _solve_sharded(self, problem, host, n_iters):
+        """A window BA on the mesh: the observations regrouped by point
+        shard (the order worked out from the host problem, applied to the
+        device problem), the distributed LM (`sharded_schur_ba`), then the
+        per-observation chi2 of the outlier test priced on the original
+        observation order (point sharding keeps the point order, so the
+        solved states and points drop into the original problem), as the
+        JAX package does (problems.py:689-720). Nothing is read back."""
+        from ..parallel.multihost import mesh_axis
+        from ..parallel.sharded_ba import apply_order, shard_order, sharded_schur_ba
+
+        n = mesh_axis(self.mesh, "dp")[2]
+        order, keep = _upload_arrays(shard_order(host.obs_pt, host.obs_valid,
+                                                 host.points.shape[0], n), self.device)
+        kf, pts, info = sharded_schur_ba(apply_order(problem, order, keep), self.camera,
+                                         self.calib.R_cb, self.calib.t_cb, self.mesh,
+                                         n_iters=n_iters)
+        chi2, _ = _vis_residuals(problem._replace(kf=kf, points=pts), self.camera,
+                                 self.calib.R_cb, self.calib.t_cb, CHI2_MONO)
+        return kf, pts, dict(info, obs_chi2=chi2)
 
     def _log_pathological_start(self, problem, host, info, ids, n_ie):
         """A window should never start this inconsistent: split the start
@@ -720,14 +750,16 @@ class Problems:
 
     def warm_solvers(self):
         """Build `csrc/` and launch each K4 route once at the façade's
-        capacities (D = 15 local_k and 15 full_k), so that the first timed
-        window BA is not the first launch. Eager torch compiles nothing
-        else; off the card this does nothing."""
+        capacities (D = 15 local_k and 15 full_k; under a mesh the first
+        only, as the JAX package skips the full polish's shape there,
+        problems.py:882), so that the first timed window BA is not the
+        first launch. Eager torch compiles nothing else; off the card this
+        does nothing."""
         if self.device.type != "cuda":
             return
         cuda_lib.build()
         cuda_lib.lib()
-        for K in (self.local_k, self.full_k):
+        for K in (self.local_k,) if self.mesh is not None else (self.local_k, self.full_k):
             D = 15 * K
             chol_solve(torch.eye(D, dtype=torch.float32, device=self.device)[None],
                        torch.ones((1, D), dtype=torch.float32, device=self.device))

@@ -547,3 +547,51 @@ def test_system_track_fetches_on_the_card(cuda):
     assert len(tracked) >= 5
     for state, fetches, syncs, _ in tracked:
         assert fetches == 3 and syncs == fetches, rows
+
+
+@pytest.mark.gpu
+def test_sharded_schur_ba_on_one_nccl_rank(cuda, tmp_path):
+    """`sharded_schur_ba` on a one-rank NCCL group (a file store) and its
+    ("dp",) mesh, on the bench window: the cost of `schur_ba` within 1e-3,
+    the poses within 2e-3, one all_reduce an iteration (and two after the
+    loop), ten K4 launches and no host sync inside the solve."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from monoorbslam3_tpu_torch.backend.solver import schur_ba
+    from monoorbslam3_tpu_torch.bench_window import build_problem
+    from monoorbslam3_tpu_torch.parallel import multihost, sharded_ba
+
+    assert multihost.initialize(coordinator=f"file://{tmp_path}/store", num_processes=1,
+                                process_id=0)
+    calls = []
+    inner = dist.all_reduce
+    try:
+        mesh = multihost.global_mesh(("dp",))
+        problem, cam = build_problem(seed=0, device=cuda)
+        eye, z = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+        sharded, dropped = sharded_ba.shard_problem_by_point(problem, 1)
+        sharded_ba.sharded_schur_ba(sharded, cam, eye, z, mesh, n_iters=10)  # warm-up
+        torch.cuda.synchronize()
+        dist.all_reduce = lambda *a, **k: (calls.append(1), inner(*a, **k))[1]
+        n0 = cuda_lib.launches["chol_solve"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                kf, pts, info = sharded_ba.sharded_schur_ba(sharded, cam, eye, z, mesh,
+                                                             n_iters=10)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        launches = cuda_lib.launches["chol_solve"] - n0
+        kf1, _, info1 = schur_ba(problem, cam, eye, z, n_iters=10)
+        assert dropped == 0 and syncs == 0 and launches == 10 and len(calls) == 12
+        assert abs(float(info["cost"]) - float(info1["cost"])) <= 1e-3 * float(info1["cost"])
+        assert float((kf.t_wb - kf1.t_wb).abs().max()) <= 2e-3
+        assert bool(torch.isfinite(pts).all())
+    finally:
+        dist.all_reduce = inner
+        dist.destroy_process_group()

@@ -24,6 +24,7 @@ capacities.
 
 import copy
 import logging
+import types
 
 import jax
 import numpy as np
@@ -446,8 +447,11 @@ def test_pose_optimizers_match_jax(sensors):
 
 
 def test_problems_rejects_a_mesh_and_warms_nothing_off_the_card(sensors):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tproblems.Problems(sensors["tcam"], sensors["tcalib"], mesh=object(), device="cpu")
+    """A mesh of another device type than the façade's is refused (the
+    sharded path on a CPU mesh: tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="mesh"):
+        tproblems.Problems(sensors["tcam"], sensors["tcalib"],
+                           mesh=types.SimpleNamespace(device_type="cuda"), device="cpu")
     _, tp = problems(sensors)
     tp.warm_solvers()
     assert tp.device == torch.device("cpu") and tp.syncs.n == 0

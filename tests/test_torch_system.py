@@ -16,10 +16,12 @@ and `config.build_system` against the JAX package's on the CPU.
 - The async mapper's smoke (the twin of tests/test_aux.py's).
 - `build_system` on every profile under settings/ gives the JAX package's
   configuration, capacities, camera, calibration and vocabulary (and its
-  extractor's parameters on one profile); `viewer_dir` and `mesh` raise.
+  extractor's parameters on one profile); `viewer_dir` starts the viewer
+  and a mesh of another device type raises.
 """
 
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -306,8 +308,13 @@ def test_build_system_with_extractor():
     np.testing.assert_array_equal(ts.tracking.scale_factors, np.asarray(js.tracking.scale_factors))
 
 
-def test_unported_arguments_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_system(viewer_dir="view")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port_system(mesh=object())
+def test_unported_arguments_raise(tmp_path):
+    """The two arguments that raised until they were ported: `viewer_dir`
+    now starts the viewer thread, which joins at shutdown; `mesh` reaches
+    `Problems`, which raises only for a mesh of another device type."""
+    syst = _port_system(viewer_dir=str(tmp_path / "view"))
+    assert syst.viewer is not None and syst.viewer._thread.is_alive()
+    syst.shutdown()
+    assert syst.viewer.is_finished() and (tmp_path / "view").is_dir()
+    with pytest.raises(ValueError, match="mesh"):
+        _port_system(mesh=types.SimpleNamespace(device_type="cuda"))
