@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's eleven paths, each with the kernel launch counts set to 0 just before
+port's twelve paths, each with the kernel launch counts set to 0 just before
 it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -76,7 +76,22 @@ it and read just after:
    against `schur_ba` and the JAX-CPU anchors, `Problems(mesh=)` through
    the local BA on the seeded store against the JAX package's run, and
    `parallel/frontend_dp.make_batch_extractor` over 8 frames (K1) against
-   one extraction a frame.
+   one extraction a frame;
+12. measure: the port's measuring entry points (`measure_path`), each
+   through its `main` or public function: `graft_entry.entry()`'s
+   flagship step (K1, K2) on its seeded inputs and on a rendered set,
+   held to the JAX package's `__graft_entry__` on the same inputs
+   (`experiments/port_graft_jax.py`), with no host sync inside;
+   `measure.bench` (local-BA iterations/s flat and grouped, the tracking
+   step's frames/s, each with quartiles and n; K4, K1, K2);
+   `measure.bench_kernels` (the JAX script's rows and a line a hand
+   kernel, each checked against its plain version; K1-K4, both K4
+   routes); `measure.e2e` over the circle10 world with the sync mapper
+   (rendered by a child process while paths 1-11 run), held to the JAX
+   package's run of it (`experiments/port_e2e_jax.py`), with no kernel
+   build after the warm-up; `measure.bench_scaling` at one NCCL rank
+   (and two, which one card cannot hold: not measured); and
+   `graft_entry.dryrun_multichip(1)` in a spawned rank.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -119,7 +134,8 @@ of `track_map_checks`, or the system world one of `system_world_checks`,
 `system_resume_checks` or `system_async_checks`, or the dataset CLI one of
 `dataset_cli_checks` (the native loader must have built: the path fails
 with the compiler's output otherwise), or the sharded BA one of
-`sharded_ba_checks`. Prints, before the last line, the
+`sharded_ba_checks`, or the measuring entry points one of
+`measure_checks`. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -142,6 +158,13 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+
+# the card's timing tools, one copy in the port's measure/timing.py
+from monoorbslam3_tpu_torch.measure.timing import (  # noqa: F401
+    F32_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, K2_GATE_OPS, SLEEP_HZ, TIMED_CALLS,
+    Capture as _Capture, bound, k1_bound, k2_bound, k3_bound, k4_bound, span_ms as _span_ms,
+    time_kernel as _time_kernel)
+from monoorbslam3_tpu_torch.measure.bench_kernels import pm1_planes, seeded_spd  # noqa: E402,F401
 
 SETTINGS = Path(__file__).resolve().parent / "settings"
 # EuRoC MAV (settings/euroc.yaml): the camera of both drives and of the
@@ -387,31 +410,9 @@ SW_GROUPED_MIN = 1.0
 K4_SPD_DIMS = (12, 96, 465, 480, 768, 769, 1440)
 K4_RTOL = 1e-5
 
-# kernel times: TIMED_CALLS calls back to back behind a sleep kernel
-# (`_time_kernel`); SLEEP_HZ is at or above the H100's SM clock, so a hold
-# of n cycles lasts at least n / SLEEP_HZ seconds
-TIMED_CALLS = 20
-SLEEP_HZ = 2.0e9
-# published peaks of one H100 SXM, dense (NVIDIA's data sheet), for each
-# kernel's bound
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
-# K2's float32 work a pair: q = dx*dx + dy*dy (5), q against both r^2 (2),
-# the group compare (1), the select of the gated distance (1) and the two
-# compares of the running top-2 (2)
-K2_GATE_OPS = 11
 # K2's eight launches a frame, in the order the tracking step makes them
 K2_CALLS = tuple(f"{stage} {radius} {direction}" for stage in ("coarse", "local")
                  for radius in ("tight", "wide") for direction in ("rows", "transposed"))
-
-
-def seeded_spd(D, rng, G=1):
-    """G SPD systems A A^T + D I (tests/test_pallas.py's construction) and
-    right-hand sides, float32 numpy."""
-    A = rng.normal(size=(G, D, D)).astype(np.float32)
-    S = A @ A.transpose(0, 2, 1) + D * np.eye(D, dtype=np.float32)
-    return S, rng.normal(size=(G, D)).astype(np.float32)
 
 
 def seeded_not_spd(D, rng, kind):
@@ -1548,6 +1549,30 @@ class _Prefetched:
         self.proc.stdout.close()
 
 
+class _Drained(threading.Thread):
+    """Reads a `_Prefetched` stream to its end on a thread of its own, so
+    that its child renders the whole stream ahead (a child blocks once its
+    pipe is full). `frames()` waits for the end and raises the reader's
+    error, if any."""
+
+    def __init__(self, stream):
+        super().__init__(daemon=True)
+        self.stream, self.items, self.error = stream, [], None
+        self.start()
+
+    def run(self):
+        try:
+            self.items.extend(self.stream.frames())
+        except BaseException as exc:  # handed to the caller of frames()
+            self.error = exc
+
+    def frames(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.items
+
+
 def _write_exports(syst, out_dir, tag):
     """The five exports of `syst` into out_dir: the four text files and the
     checkpoint. Returns ({name: path}, the checkpoint's path)."""
@@ -2370,6 +2395,257 @@ def sharded_ba_checks(shb, on_card=True):
     return fails
 
 
+# -- path 12, measure: the port's measuring entry points ---------------------
+# The graft entry's rendered set: two frames of the tracking drive's world
+# through the drive's rig on the flagship's pinhole (752x480, no
+# distortion). The map is the first frame's keypoints lifted to their true
+# world points, with the descriptors of the JAX package's extraction of
+# that frame (experiments/port_graft_jax.py writes them into
+# GRAFT_RENDERED); the step tracks the second frame from the first one's
+# camera pose (the flagship's body is its camera: R_cb = I).
+GRAFT_T = (0.5, 0.55)
+GRAFT_RENDERED = Path(__file__).resolve().parent / "experiments" / "port_graft_rendered.npz"
+
+
+def graft_frames(H=480, W=752):
+    """(map image, tracked image, world, the flagship's camera on the CPU)
+    of the rendered set, H x W (the flagship's intrinsics at any size, as
+    its step takes them)."""
+    from monoorbslam3_tpu_torch import graft_entry
+    from monoorbslam3_tpu_torch.models.camera import Pinhole
+    from monoorbslam3_tpu_torch.sim import ImageWorld
+
+    cam = Pinhole.create(**graft_entry.FLAGSHIP_CAM, width=W, height=H, device="cpu")
+    world = ImageWorld()
+    imgs = [world.render(t, cam, R_BC, T_BC, rng=np.random.default_rng(i))
+            for i, t in enumerate(GRAFT_T)]
+    return imgs[0], imgs[1], world, cam
+
+
+def graft_camera_pose(world, t):
+    """(R_wc, camera centre) at t: the flagship step's (R0, t0)."""
+    R_cw, t_cw = world.pose_cw(t, R_BC, T_BC)
+    return R_cw.T.astype(np.float32), (-R_cw.T @ t_cw).astype(np.float32)
+
+
+def graft_rendered_inputs(xy, desc, valid, world, cam):
+    """The map of the rendered set from the map frame's features (xy [N, 2]
+    level-0 pixels, desc [N, 8] u32, valid [N]): (pt_xyz, pt_desc,
+    pt_valid, R0, t0) as numpy; a keypoint whose ray misses the scene is
+    invalid."""
+    X = world.world_points(GRAFT_T[0], cam, R_BC, T_BC, np.asarray(xy, np.float64))
+    ok = np.asarray(valid, bool) & np.isfinite(X).all(1)
+    pt_xyz = np.where(ok[:, None], X, 0.0).astype(np.float32)
+    R0, t0 = graft_camera_pose(world, GRAFT_T[0])
+    return pt_xyz, np.asarray(desc, np.uint32), ok, R0, t0
+
+
+# the JAX package's `__graft_entry__.entry()` on the CPU
+# (experiments/port_graft_jax.py): the flagship's seeded inputs (one inlier:
+# the LM barely constrained) and the rendered set
+JAX_GRAFT = {
+    "seeded": dict(R=[[0.9997597932815552, 0.021791374310851097, 0.002327773254364729],
+                      [-0.021771129220724106, 0.999727725982666, -0.00839488860219717],
+                      [-0.002510075457394123, 0.008342194370925426, 0.9999620914459229]],
+                   t=[0.021400826051831245, -0.06266402453184128, 0.09173732250928879],
+                   n_inliers=1),
+    "rendered": dict(R=[[0.8293997049331665, -7.414104038616642e-05, 0.5586556196212769],
+                        [-0.5586556196212769, -1.0888164979405701e-05, 0.8293997645378113],
+                        [-5.5409822380170226e-05, -1.0, -5.044994759373367e-05]],
+                     t=[4.8923492431640625, 0.9795652627944946, 0.17031650245189667],
+                     n_inliers=463),
+}
+GRAFT_TOL, GRAFT_INLIER_SLACK, GRAFT_MIN_RENDERED_INLIERS = 1e-3, 2, 100
+# the JAX package's experiments/tpu_e2e.run_world("circle10", sync=True) on
+# the CPU (experiments/port_e2e_jax.py; the JAX script rounds ATE and scale
+# error to 4 digits) at the trackers' default RANSAC seed, its keyframe ATE
+# over seeds 0-3 (`--seeds 0,1,2,3`: one JAX run is no bound, the spread is
+# 5x), and run_validation.py's bounds of the circle world (circle60's:
+# circle10 is its first 10 s)
+E2E_WORLD = "circle10"
+JAX_E2E_CIRCLE10 = dict(frames=200, ok_frames=199, ok_ratio=0.995, lost_events=0, n_keyframes=40,
+                        ate_rmse=0.0029, scale_err=0.0135)
+JAX_E2E_ATE_OVER_SEEDS = {0: 0.0029, 1: 0.0047, 2: 0.014, 3: 0.0049}
+E2E_ATE_BOUND_M, E2E_SCALE_BOUND = 0.8, 0.12
+# bench_scaling on the card: one rank a card, and the size one card cannot
+# hold, reported as not measured
+SCALING_SIZES = ("1", "2")
+
+
+def measure_path(device, e2e_frames, out_dir, log=print):
+    """Path 12 on `device`: the port's measuring entry points, each through
+    its `main` or its public function, in one process but for the ranks
+    they spawn.
+
+    1. `graft_entry.entry()`: the flagship step on its seeded inputs, once
+       under the sync debug mode (syncs inside) and read with one fetch;
+       then on the rendered set (GRAFT_RENDERED's map, the tracked frame
+       rendered again here: its pixel sum must be the JAX run's).
+    2. `measure.bench.main`: local-BA iterations/s (flat and grouped) and
+       the tracking step's frames/s, each with quartiles and n.
+    3. `measure.bench_kernels.main`: the JAX script's rows and one line a
+       hand kernel at the main path's shapes, each kernel checked against
+       its plain version.
+    4. `measure.e2e.run_world(E2E_WORLD, sync=True)` on `e2e_frames` (the
+       world's frames, rendered ahead by the caller).
+    5. `measure.bench_scaling.main(SCALING_SIZES)`: one NCCL rank a card.
+    6. `graft_entry.dryrun_multichip(1)`: one spawned rank.
+
+    Returns a summary dict of each entry point's outputs."""
+    import torch
+
+    from monoorbslam3_tpu_torch import graft_entry
+    from monoorbslam3_tpu_torch.measure import bench, bench_kernels, bench_scaling, e2e
+    from monoorbslam3_tpu_torch.utils.fetch import SyncCounter, fetch
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out = {}
+    t0 = time.perf_counter()
+    step, args = graft_entry.entry(dev)
+    step(*args)  # the extractor's constants go up at the first call
+    watch, fetches = SyncWatch(), SyncCounter()
+    with watch(on_card):
+        res = step(*args)
+    R, t, n = fetch(res, fetches)
+    out["graft_seeded"] = dict(R=R.tolist(), t=t.tolist(), n_inliers=int(n),
+                               syncs_in_step=watch.n, sync_sites=dict(watch.sites),
+                               fetches=fetches.n)
+    saved = np.load(GRAFT_RENDERED)
+    _, img_track, _, _ = graft_frames()
+    rendered = (img_track, saved["pt_xyz"], saved["pt_desc"], saved["pt_valid"], saved["R0"],
+                saved["t0"])
+    R, t, n = fetch(step(*graft_entry.upload(rendered, dev)), fetches)
+    out["graft_rendered"] = dict(
+        R=R.tolist(), t=t.tolist(), n_inliers=int(n),
+        image_sum=float(img_track.astype(np.float64).sum()),
+        jax_image_sum=float(saved["image_sum"]))
+    out["graft_s"] = time.perf_counter() - t0
+    log("graft entry: " + json.dumps(out["graft_seeded"]) + " " + json.dumps(out["graft_rendered"]))
+
+    argv = ["--device", dev.type]
+    t0 = time.perf_counter()
+    out["bench"] = bench.main(argv)
+    out["bench_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bench_kernels"] = bench_kernels.main(argv)
+    out["bench_kernels_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["e2e"] = e2e.run_world(E2E_WORLD, out_dir, sync=True, device=dev, frames=e2e_frames,
+                               log=lambda line: None)
+    out["e2e_s"] = time.perf_counter() - t0
+    log("e2e: " + json.dumps(out["e2e"]))
+
+    if on_card:
+        torch.cuda.empty_cache()  # the spawned ranks share the card
+    t0 = time.perf_counter()
+    out["bench_scaling"] = bench_scaling.main([*SCALING_SIZES, *argv])
+    out["bench_scaling_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = graft_entry.dryrun_multichip(1, dev)
+    out["dryrun_s"] = time.perf_counter() - t0
+    log("dryrun_multichip(1): " + json.dumps(out["dryrun"]))
+    return out
+
+
+def measure_checks(meas, on_card=True):
+    """Path 12's gates: the graft step at its JAX anchors (R, t within
+    GRAFT_TOL, inliers within GRAFT_INLIER_SLACK, over
+    GRAFT_MIN_RENDERED_INLIERS on the rendered set, 0 syncs inside and one
+    fetch of its outputs); the bench window's costs at the JAX-CPU anchors, every rate a
+    measured number with n >= 10; every bench_kernels line measured (but
+    for the rows whose launches cannot be held) with its check; the e2e
+    row within the system world's gates against JAX_E2E_CIRCLE10 (the ATE
+    against 2x the largest of JAX_E2E_ATE_OVER_SEEDS) and the world's
+    bounds, with 0 kernel builds after the warm-up; bench_scaling's
+    one-rank rows measured and its two-rank rows not; the dry run on every
+    rank. Returns the failures."""
+    fails = []
+    for name in ("seeded", "rendered"):
+        got, ref = meas[f"graft_{name}"], JAX_GRAFT[name]
+        for key in ("R", "t"):
+            err = float(np.abs(np.subtract(got[key], ref[key])).max())
+            if not err <= GRAFT_TOL:
+                fails.append(f"graft entry ({name}): {key} {err:.3e} from JAX's")
+        if abs(got["n_inliers"] - ref["n_inliers"]) > GRAFT_INLIER_SLACK:
+            fails.append(f"graft entry ({name}): {got['n_inliers']} inliers, JAX's "
+                         f"{ref['n_inliers']}")
+    gr = meas["graft_rendered"]
+    if gr["image_sum"] != gr["jax_image_sum"]:
+        fails.append("graft entry: the rendered frame is not the JAX run's")
+    if not gr["n_inliers"] > GRAFT_MIN_RENDERED_INLIERS:
+        fails.append(f"graft entry: {gr['n_inliers']} inliers on the rendered set")
+    gs = meas["graft_seeded"]
+    if on_card and (gs["syncs_in_step"] or gs["fetches"] != 1):
+        fails.append(f"graft entry: {gs['syncs_in_step']} syncs inside the step "
+                     f"{gs['sync_sites']}, {gs['fetches']} fetches of its outputs")
+    b = meas["bench"]
+    if abs(b["cost0"] - JAX_BA_COST0) > BA_COST0_RTOL * JAX_BA_COST0:
+        fails.append(f"bench: cost0 {b['cost0']} vs {JAX_BA_COST0}")
+    if abs(b["cost"] - JAX_BA_COST["flat_deferred"]) > BA_COST_RTOL * JAX_BA_COST["flat_deferred"]:
+        fails.append(f"bench: cost {b['cost']} vs {JAX_BA_COST['flat_deferred']}")
+    if on_card:
+        for key in ("value", "grouped_polish_iters_per_s", "frontend_fps", "setup_s"):
+            if not isinstance(b[key], float) or not b[key] > 0:
+                fails.append(f"bench: {key} {b[key]}")
+        for key, tm in b["timing"].items():
+            if tm["n"] < 10 or not tm["q25_ms"] <= tm["median_ms"] <= tm["q75_ms"]:
+                fails.append(f"bench: timing {key} {tm}")
+        if "power_limit" not in b["device"]:
+            fails.append("bench: no card and power limit beside its numbers")
+    rows = {r["metric"]: r for r in meas["bench_kernels"]}
+    for name in ("hamming_rt", "hamming_bulk", "match_step_rt", "orb_extract_frame",
+                 "preintegrate_200", "schur_ba_iter", "K1_gather_atlas_in_l2",
+                 "K1_gather_atlas_from_hbm", "K2_match_rows_rows", "K2_match_rows_transposed",
+                 "K4_chol_cluster", "K4_chol_large_d"):
+        r = rows.get(f"kernel_{name}")
+        if r is None:
+            fails.append(f"bench_kernels: no line {name}")
+            continue
+        if not on_card:
+            continue
+        if not isinstance(r["call_ms"], float) or "power_limit" not in r["device"]:
+            fails.append(f"bench_kernels {name}: call time {r['call_ms']}, device {r['device']}")
+        launch_heavy = name in ("orb_extract_frame", "preintegrate_200", "schur_ba_iter")
+        if not launch_heavy and not isinstance(r["device_ms"], float):
+            fails.append(f"bench_kernels {name}: device time {r['device_ms']}")
+        if r.get("kernel") and name != "preintegrate_200" and "check" not in r:
+            fails.append(f"bench_kernels {name}: no check of its kernel")
+    e = meas["e2e"]
+    ref = JAX_E2E_CIRCLE10
+    ok_ratio = e["ok_frames"] / e["frames"]
+    ate_max = min(SW_ATE_FACTOR * max(JAX_E2E_ATE_OVER_SEEDS.values()), E2E_ATE_BOUND_M)
+    for bad, what in ((e["frames"] != ref["frames"], f"{e['frames']} frames"),
+                      (e["lost_events"] > 0, f"{e['lost_events']} LOST frames"),
+                      (not ok_ratio >= ref["ok_ratio"] - SW_OK_SLACK, f"OK ratio {ok_ratio}"),
+                      (not e["ate_rmse"] <= ate_max, f"ATE {e['ate_rmse']} m > {ate_max} m"),
+                      (not e["scale_err"] <= E2E_SCALE_BOUND, f"scale error {e['scale_err']}"),
+                      (any(e["kernel_builds_after_warmup"].values()),
+                       f"kernel builds after the warm-up {e['kernel_builds_after_warmup']}")):
+        if bad:
+            fails.append(f"e2e {E2E_WORLD}: {what}")
+    if on_card:
+        for key in ("fps", "realtime_factor", "warmup_s", "wall_s"):
+            if not isinstance(e[key], float):
+                fails.append(f"e2e: {key} {e[key]}")
+        if e["frame_ms"]["n"] != e["frames"]:
+            fails.append(f"e2e: frame times {e['frame_ms']}")
+    for line in meas["bench_scaling"]:
+        n, value = line.get("n_devices"), line["value"]
+        if line["metric"] == "frontend_dp_scaling_efficiency":
+            continue
+        if n == 1 and not isinstance(value, float):
+            fails.append(f"bench_scaling: {line['metric']} at one rank: {value}")
+        if on_card and n > 1 and value != "not measured":
+            fails.append(f"bench_scaling: {line['metric']} at {n} ranks on one card: {value}")
+    for r in meas["dryrun"]:
+        if not (np.isfinite(r["sharded_cost"]) and np.isfinite(r["live_cost"])
+                and r["extracted_frames"] == r["ranks"]):
+            fails.append(f"dryrun_multichip: rank {r['rank']} {r}")
+    return fails
+
+
 class SyncWatch:
     """Counts the host syncs that PyTorch's sync debug mode reports inside
     `with watch(on_card):` blocks (nothing is counted off the card), and
@@ -2648,75 +2924,6 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
-def _time_kernel(fn, label="", n=TIMED_CALLS, reps=5, warmup=3):
-    """(device_ms, call_ms) of one fn() call.
-
-    device_ms: `torch.cuda._sleep` holds the stream while the host enqueues
-    n calls back to back between two CUDA events, so the events time the
-    device alone, not the wrapper's host time between launches. If the
-    first event had already been reached when the host finished enqueuing,
-    the hold was too short: it is doubled and the window run again. Median
-    over `reps` windows, divided by n. A function that synchronizes inside
-    (a library call reading a status back), or whose n calls launch more
-    kernels than the launch queue holds (the host then waits for the held
-    stream), cannot be held: past a 0.25 s hold its device_ms is the median
-    event span of single calls instead, host time inside the call
-    included, and a line says so.
-    call_ms: host clock over n calls ending in a synchronize, per call:
-    what a launch-bound caller pays for one call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    calls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        calls.append(1e3 * (time.perf_counter() - t0) / n)
-    call_ms = float(np.median(calls))
-    hold_s = max(2e-3, 3e-3 * call_ms * n)
-    dev = []
-    while len(dev) < reps:
-        torch.cuda._sleep(int(hold_s * SLEEP_HZ))
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        covered = not a.query()
-        b.synchronize()
-        if covered:
-            dev.append(a.elapsed_time(b) / n)
-        elif hold_s < 0.25:
-            hold_s *= 2
-        else:
-            print(f"timing: {label or 'a call'} cannot be held (it synchronizes inside, or its "
-                  "launches fill the launch queue); its device time is the event span of one call")
-            return _span_ms(fn, n), call_ms
-    return float(np.median(dev)), call_ms
-
-
-def _span_ms(fn, n):
-    """Median CUDA-event span of single fn() calls, each after a sync."""
-    import torch
-
-    spans = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        spans.append(a.elapsed_time(b))
-    return float(np.median(spans))
-
-
 def _tensor_core_ops(lib_path):
     """{kernel: {tensor-core SASS opcode: count}} of a built library, from
     `cuobjdump -sass`; None when cuobjdump did not run."""
@@ -2737,59 +2944,6 @@ def _tensor_core_ops(lib_path):
             ops = out.setdefault(name, {})
             ops[op] = ops.get(op, 0) + 1
     return out
-
-
-def bound(n_bytes, ops=()):
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and, for each (count, peak) in `ops`, the operations over the
-    peak rate of their type (the types run on separate units, so the
-    largest of them, not their sum, is a bound)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max((count / peak for count, peak in ops), default=0.0)
-    t = max(t_bytes, t_ops)
-    return dict(bound_ms=1e3 * t, bound_us=1e6 * t,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=int(n_bytes), ops=[[float(c), p] for c, p in ops])
-
-
-def k1_bound(atlas, ys, xs, atlas_in_l2=False):
-    """K1 moves the atlas pixels its windows cover (read once; the windows
-    of neighbouring keypoints overlap), the corners, and K 48x48 windows
-    written. With `atlas_in_l2` the atlas is read from the L2 cache, not
-    from HBM, and only the corners and the windows count."""
-    import torch
-
-    ha, wa = atlas.shape
-    y0 = ys.long().clamp(0, ha - 48)
-    x0 = xs.long().clamp(0, wa - 48)
-    r = torch.arange(48, device=atlas.device)
-    cover = torch.zeros(ha * wa, dtype=torch.bool, device=atlas.device)
-    cover[((y0[:, None] + r) * wa)[:, :, None] + (x0[:, None] + r)[:, None, :]] = True
-    K = ys.shape[0]
-    read = 0 if atlas_in_l2 else 4 * int(cover.sum())
-    return bound(read + 8 * K + 4 * 48 * 48 * K)
-
-
-def k2_bound(N, M):
-    """K2 reads both sides' descriptors and five per-side vectors and
-    writes best, second and idx. Operations: the Hamming distances as a
-    depth-256 binary product (2 x 256 a pair) at the int8 tensor peak, and
-    the gate and running top-2 (K2_GATE_OPS a pair) at the float32 peak."""
-    return bound((N + M) * (32 + 5 * 4) + 12 * N,
-                 [(2 * 256 * N * M, INT8_OPS_PER_S), (K2_GATE_OPS * N * M, F32_OPS_PER_S)])
-
-
-def k3_bound(N, M):
-    """K3 reads both sides' descriptors and writes the [N, M] int32 block;
-    its operations, as a depth-256 binary product, at the int8 peak."""
-    return bound((N + M) * 32 + 4 * N * M, [(2 * 256 * N * M, INT8_OPS_PER_S)])
-
-
-def k4_bound(G, D):
-    """K4 reads S and b and writes x; a Cholesky factor (D^3/3 multiply-
-    adds), four triangular solves and the residual of the refinement step
-    (6 D^2) at the float32 peak."""
-    return bound(4 * G * (D * D + 2 * D), [(G * (2 * D ** 3 / 3 + 6 * D * D), F32_OPS_PER_S)])
 
 
 def seeded_match_ties(N, M, rng, widths=(8, 16, 32, 64, 128, 256, 512)):
@@ -2816,32 +2970,6 @@ def seeded_match_ties(N, M, rng, widths=(8, 16, 32, 64, 128, 256, 512)):
     return [w(da), w(db), f(np.zeros(N)), f(np.zeros(N)), f(np.full(N, 1e9)),
             f(np.full(N, -1.0)), f(np.ones(N)), f(np.zeros(M)), f(np.zeros(M)),
             f(np.full(M, 1e9)), f(np.full(M, -1.0)), f(np.ones(M))]
-
-
-class _Capture:
-    """Keeps the arguments of the last `maxlen` calls of `module.name` made
-    inside the block (a kernel wrapper), so a kernel phase replays exactly
-    the inputs its path gave it."""
-
-    def __init__(self, module, name, maxlen=8):
-        self.mod, self.name, self.maxlen = module, name, maxlen
-
-    def __enter__(self):
-        self.orig = getattr(self.mod, self.name)
-        self.calls, self.n = collections.deque(maxlen=self.maxlen), 0
-        self.kwargs = collections.deque(maxlen=self.maxlen)
-
-        def spy(*args, **kwargs):
-            self.calls.append(args)
-            self.kwargs.append(kwargs)
-            self.n += 1
-            return self.orig(*args, **kwargs)
-
-        setattr(self.mod, self.name, spy)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.mod, self.name, self.orig)
 
 
 def _zero(counts):
@@ -3009,16 +3137,6 @@ def _same(got, ref, label):
             raise RuntimeError(f"{label}: {name} disagrees with the plain version")
 
 
-def _pm1_planes(desc):
-    """[n, 8] int32 words -> [n, 256] bf16 planes, +1 for a 0 bit and -1 for
-    a 1 bit, as the JAX package unpacks them for its +-1 product."""
-    import torch
-
-    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
-    bits = (desc[:, :, None] >> shifts) & 1
-    return (1 - 2 * bits).reshape(desc.shape[0], 256).to(torch.bfloat16)
-
-
 def _rel_fields(got, ref):
     """max |got - ref| / max |ref| over each field of two records."""
     out = {}
@@ -3133,6 +3251,13 @@ def main(argv=None) -> int:
     ds_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_")
     writer = DatasetWriter(Path(ds_tmp.name) / "euroc")
     atexit.register(writer.close)  # the child ends with this process, whatever happens
+    # path 12's end-to-end world, rendered by another child meanwhile
+    from monoorbslam3_tpu_torch.measure import e2e
+
+    e2e_settings, e2e_spec, _ = e2e.WORLDS[E2E_WORLD]
+    e2e_stream = _Prefetched(e2e_spec, e2e.REPO / e2e_settings)
+    atexit.register(e2e_stream.close)
+    e2e_reader = _Drained(e2e_stream)
 
     # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
@@ -3482,6 +3607,33 @@ def main(argv=None) -> int:
           f"bit-identical to one extraction a frame {json.dumps(be['identical'])}")
     ds_tmp.cleanup()
 
+    # -- path 12, measure: the port's measuring entry points ------------------
+    e2e_frames = e2e_reader.frames()
+    meas_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_measure_")
+    _zero(cuda_lib.launches)
+    t0 = time.perf_counter()
+    meas = measure_path(dev, e2e_frames, meas_tmp.name)
+    torch.cuda.synchronize()
+    meas_launches = dict(cuda_lib.launches)
+    del e2e_frames
+    meas_tmp.cleanup()
+    print(f"measure ({time.perf_counter() - t0:.1f} s: graft entry {meas['graft_s']:.1f}, bench "
+          f"{meas['bench_s']:.1f}, bench_kernels {meas['bench_kernels_s']:.1f}, e2e "
+          f"{meas['e2e_s']:.1f}, bench_scaling {meas['bench_scaling_s']:.1f}, dryrun "
+          f"{meas['dryrun_s']:.1f}); launches {json.dumps(meas_launches)}")
+    b, e = meas["bench"], meas["e2e"]
+    print(f"measure ({card}): local-BA {b['value']:.2f} iters/s (quartiles "
+          f"{b['timing']['local_ba']['iters_per_s']['q25']:.2f} / "
+          f"{b['timing']['local_ba']['iters_per_s']['q75']:.2f}, n "
+          f"{b['timing']['local_ba']['n']}), grouped {b['grouped_polish_iters_per_s']:.2f}, "
+          f"tracking step {b['frontend_fps']:.2f} frames/s; e2e {E2E_WORLD}: {e['fps']:.2f} "
+          f"frames/s, frame p50 {e['frame_ms']['p50']:.1f} / p99 {e['frame_ms']['p99']:.1f} ms, "
+          f"OK {e['ok_frames']}/{e['frames']} (JAX's {JAX_E2E_CIRCLE10['ok_frames']}), ATE "
+          f"{e['ate_rmse']:.5f} m (JAX's {JAX_E2E_CIRCLE10['ate_rmse']}, over seeds 0-3 "
+          f"{json.dumps(JAX_E2E_ATE_OVER_SEEDS)}), "
+          f"{e['n_keyframes']} keyframes (JAX's {JAX_E2E_CIRCLE10['n_keyframes']}), kernel "
+          f"builds after the warm-up {json.dumps(e['kernel_builds_after_warmup'])}")
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -3564,6 +3716,7 @@ def main(argv=None) -> int:
                         launches_system_world=sw_launches["gather_patches"],
                         launches_dataset_cli=dc_launches["gather_patches"],
                         launches_sharded_ba=shb_launches["gather_patches"],
+                        launches_measure=meas_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -3634,16 +3787,17 @@ def main(argv=None) -> int:
                         launches_system_world=sw_launches["match_rows"],
                         launches_dataset_cli=dc_launches["match_rows"],
                         launches_sharded_ba=shb_launches["match_rows"],
+                        launches_measure=meas_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
                         library_ms=None, per_frame=per_frame, calls=k2_rows))
 
     # K3 on the mapper search's inputs: triangulation 1024x1024 (KF1 x KF2
-    # features) and fuse 1024x1024 (new points x KF3 features). No PyTorch
-    # call takes packed words; for information only, the JAX path's +-1
-    # bf16 product on unpacked bit planes (256 - 2 x the distance) is timed
-    # beside it.
+    # features) and fuse 1024x1024 (new points x KF3 features). Its
+    # yardstick is the JAX package's own Hamming matrix (ops/matching.py:
+    # hamming_matrix): one +-1 bf16 product with float32 accumulation on bit
+    # planes unpacked beforehand, which gives 256 - 2 x the distance.
     k3_rows, k3_err = [], 0.0
     ab_hamming_lib = _ab_build(ab_dir, "hamming.cu")
     for label, a in zip(("triangulate", "fuse"), hcap.calls):
@@ -3653,7 +3807,7 @@ def main(argv=None) -> int:
         k3_err = max(k3_err, float((got - ref).abs().max()))
         if not torch.equal(got, ref):
             raise RuntimeError(f"K3 {label} disagrees with its plain version")
-        pa, pb = _pm1_planes(a[0]), _pm1_planes(a[1])
+        pa, pb = pm1_planes(a[0]), pm1_planes(a[1])
         if not torch.equal((256 - (pa @ pb.T).float()) / 2, ref.float()):
             raise RuntimeError("K3: the +-1 product is not 256 - 2 x the distance")
         N, M = a[0].shape[0], a[1].shape[0]
@@ -3668,14 +3822,14 @@ def main(argv=None) -> int:
             times = _ab_times(kern, ab_hamming_lib)
             row.update(zip(("device_ms", "call_ms", "parent_device_ms", "parent_call_ms"), times))
         row["plain_ms"], _ = _time_kernel(lambda: pallas_kernels.hamming_matrix_plain(*a))
-        row["info_pm1_matmul_ms"], _ = _time_kernel(lambda: pa @ pb.T)
+        row["library_ms"], _ = _time_kernel(lambda: pa @ pb.T)
         row.update(k3_bound(N, M))
         k3_rows.append(row)
         parent = (f", A/B build device {row['parent_device_ms']:.5f} ms, call "
                   f"{row['parent_call_ms']:.5f} ms" if "parent_device_ms" in row else "")
         print(f"K3 {label} {N}x{M}: bit-identical; device {row['device_ms']:.5f} ms, call "
               f"{row['call_ms']:.5f} ms{parent}, plain {row['plain_ms']:.5f} ms, +-1 bf16 matmul "
-              f"(information, not the same function) {row['info_pm1_matmul_ms']:.5f} ms, "
+              f"(the yardstick, on planes unpacked beforehand) {row['library_ms']:.5f} ms, "
               f"bound {row['bound_us']:.3f} us ({row['bound_by']})")
     if len(k3_rows) != 2:
         raise RuntimeError(f"K3: expected the triangulate and fuse launches, got {hcap.n}")
@@ -3689,10 +3843,11 @@ def main(argv=None) -> int:
                         launches_system_world=sw_launches["hamming"],
                         launches_dataset_cli=dc_launches["hamming"],
                         launches_sharded_ba=shb_launches["hamming"],
+                        launches_measure=meas_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
-                        bound_by=k3_rows[0]["bound_by"], library_ms=None, calls=k3_rows))
+                        bound_by=k3_rows[0]["bound_by"], calls=k3_rows))
 
     # K4 on every reduced system the BA runs solved (D = 480; G = 1 from the
     # deferred LM, G = 2 from the parallel-lambda LM) and on seeded SPD
@@ -3832,6 +3987,7 @@ def main(argv=None) -> int:
                         launches_system_world=sw_launches["chol_solve"],
                         launches_dataset_cli=dc_launches["chol_solve"],
                         launches_sharded_ba=shb_launches["chol_solve"],
+                        launches_measure=meas_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -3847,6 +4003,7 @@ def main(argv=None) -> int:
                         launches_system_world=sw_launches["chol_solve_l2"],
                         launches_dataset_cli=dc_launches["chol_solve_l2"],
                         launches_sharded_ba=shb_launches["chol_solve_l2"],
+                        launches_measure=meas_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -3909,7 +4066,16 @@ def main(argv=None) -> int:
                             ("dataset CLI", "hamming", dc_launches),
                             ("dataset CLI", "chol_solve", dc_launches),
                             ("sharded BA", "gather_patches", shb_launches),
-                            ("sharded BA", "chol_solve", shb_launches)):
+                            ("sharded BA", "chol_solve", shb_launches),
+                            ("measure", "gather_patches", meas_launches),
+                            ("measure", "match_rows", meas_launches),
+                            ("measure", "hamming", meas_launches),
+                            ("measure", "chol_solve", meas_launches),
+                            ("measure", "chol_solve_l2", meas_launches),
+                            ("measure's e2e run", "gather_patches", meas["e2e"]["launches"]),
+                            ("measure's e2e run", "match_rows", meas["e2e"]["launches"]),
+                            ("measure's e2e run", "hamming", meas["e2e"]["launches"]),
+                            ("measure's e2e run", "chol_solve", meas["e2e"]["launches"])):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3931,6 +4097,7 @@ def main(argv=None) -> int:
     failures += system_async_checks(sa)
     failures += dataset_cli_checks(dc, dc_records, dc_steps)
     failures += sharded_ba_checks(shb)
+    failures += measure_checks(meas)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

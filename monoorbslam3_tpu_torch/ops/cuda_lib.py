@@ -8,7 +8,9 @@ when a source is newer than it. A failed build or load raises; there is no
 fallback.
 
 `launches` counts, per kernel, the launches its wrapper made: each wrapper
-adds one right where it launches, nowhere else.
+adds one right where it launches, nowhere else. `builds` counts this
+process's builds of the library and the nvcc processes they started (a
+measured run holds both at 0 after its warm-up).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches = {"gather_patches": 0, "match_rows": 0, "hamming": 0, "chol_solve": 0,
             "chol_solve_l2": 0}
+
+builds = {"builds": 0, "nvcc_calls": 0}
 
 _lib = None
 
@@ -85,6 +89,8 @@ def build() -> Path:
         return LIB
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    builds["builds"] += 1
+    builds["nvcc_calls"] += len(srcs) + 1  # one a source, then the link
     tag = os.getpid()
     objs = [BUILD / f"{src.stem}.{tag}.o" for src in srcs]
     cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]

@@ -22,6 +22,11 @@ process count and its rank.
 
 from __future__ import annotations
 
+import queue
+import tempfile
+import time
+import traceback
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -101,3 +106,83 @@ def mesh_axis(mesh, axis: str = "dp"):
     """(process group, this rank's index, size) of the mesh's `axis`."""
     return (mesh.get_group(axis), mesh.get_local_rank(axis),
             mesh.size(list(mesh.mesh_dim_names).index(axis)))
+
+
+def run_ranks(fn, n: int, device_type: str = CARD.type, args=(), timeout: float = 900.0,
+              independent: bool = False) -> list:
+    """Run `fn(*args)` once on each rank of a fresh group of `n` processes
+    and return the ranks' results in rank order. With `independent`, each
+    of the n processes joins a one-rank group of its own instead (process r
+    on card r): n replicas of a one-rank program side by side.
+
+    The process model of a torch mesh in one call: the ranks are spawned
+    (`torch.multiprocessing`, the spawn method), each joins the group
+    through `initialize` (a file store in a temporary directory; NCCL on
+    "cuda", one card a rank; gloo on "cpu", one thread a rank), runs `fn`
+    and leaves the group. `fn` must be a module-level function and its
+    result picklable. A rank that raises sends its traceback, and the call
+    raises with it once every rank has answered or the first has failed
+    (the others are then stopped); a rank that dies without an answer, or
+    no answer within `timeout` seconds, raises too. More ranks than the
+    host's cards raises before any process starts: the ranks never run on
+    the CPU in place of cards."""
+    resolve(device_type)
+    if device_type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"run_ranks: {n} ranks need {n} cards, this host has "
+                           f"{torch.cuda.device_count()} (NCCL takes one card a rank)")
+    ctx = torch.multiprocessing.get_context("spawn")
+    answers = ctx.Queue()
+    results, failures = {}, []
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        coord = f"file://{tmp}/store"
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, n, coord, device_type, args, answers, independent))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + timeout
+            while len(results) + len(failures) < n and not failures:
+                try:
+                    rank, ok, payload = answers.get(timeout=1.0)
+                except queue.Empty:
+                    failures += [f"rank {r} exited with code {p.exitcode} without an answer"
+                                 for r, p in enumerate(procs)
+                                 if p.exitcode not in (None, 0) and r not in results]
+                    if not failures and time.monotonic() > deadline:
+                        failures.append(f"no answer from every rank within {timeout} s")
+                    continue
+                if ok:
+                    results[rank] = payload
+                else:
+                    failures.append(f"rank {rank} failed:\n{payload}")
+        finally:
+            for p in procs:
+                if failures:
+                    p.kill()
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if failures:
+        raise RuntimeError("run_ranks: " + "\n".join(failures))
+    return [results[r] for r in range(n)]
+
+
+def _rank_main(fn, rank, n, coordinator, device_type, args, answers, independent):
+    """One spawned rank of `run_ranks`."""
+    try:
+        if device_type == "cpu":
+            torch.set_num_threads(1)
+        if independent:
+            initialize(coordinator=f"{coordinator}{rank}", num_processes=1, process_id=0,
+                       local_device_ids=[rank], device_type=device_type)
+        else:
+            initialize(coordinator=coordinator, num_processes=n, process_id=rank,
+                       device_type=device_type)
+        answers.put((rank, True, fn(*args)))
+    except BaseException:
+        answers.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -116,7 +116,10 @@ def sharded_schur_ba(problem: BAProblem, camera, R_cb, t_cb, mesh, n_iters: int 
     pts_sl = slice(shard * per_pt, (shard + 1) * per_pt)
     obs_sl = slice(shard * per_obs, (shard + 1) * per_obs)
     local = {f: getattr(problem, f)[obs_sl] for f in _OBS_FIELDS}
-    local["obs_pt"] = local["obs_pt"] - shard * per_pt
+    # an empty slot of the block points at observation 0 (masked by
+    # obs_valid), whose point may lie in another shard: clamped into this
+    # shard, as the JAX package's gathers clamp an index out of range
+    local["obs_pt"] = torch.clamp(local["obs_pt"] - shard * per_pt, 0, per_pt - 1)
     pb0 = problem._replace(points=problem.points[pts_sl], pt_active=problem.pt_active[pts_sl],
                            **local)
     Pl = per_pt

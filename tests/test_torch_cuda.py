@@ -595,3 +595,70 @@ def test_sharded_schur_ba_on_one_nccl_rank(cuda, tmp_path):
     finally:
         dist.all_reduce = inner
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_graft_step_makes_no_host_sync(cuda):
+    """The flagship step (`graft_entry.entry`) runs with PyTorch's sync
+    debug mode raising on any host sync, after one warm-up call; its
+    outputs stay on the card."""
+    from monoorbslam3_tpu_torch import graft_entry
+
+    step, args = graft_entry.entry(cuda)
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        R, t, n = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert R.is_cuda and t.is_cuda and n.is_cuda
+
+
+@pytest.mark.gpu
+def test_failed_kernel_build_raises(cuda, tmp_path, monkeypatch):
+    """A source that nvcc refuses ends a measurement with nvcc's error: no
+    entry point falls back to a plain version on the card."""
+    from monoorbslam3_tpu_torch.measure import bench
+
+    (tmp_path / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)
+    monkeypatch.setattr(cuda_lib, "BUILD", tmp_path / "_build")
+    monkeypatch.setattr(cuda_lib, "LIB", tmp_path / "_build" / "lib.so")
+    monkeypatch.setattr(cuda_lib, "BUILD_LOG", tmp_path / "_build" / "nvcc.log")
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bench.bench(cuda, window=dict(n_kf=8, n_fixed=2, n_pts=256, obs_per_kf=48),
+                    frontend=(240, 376, 256))
+
+
+@pytest.mark.gpu
+def test_failed_frontend_bench_raises(cuda, monkeypatch):
+    """A tracking step that fails ends the bench: no -1 stands in for its
+    rate."""
+    from monoorbslam3_tpu_torch.measure import bench
+
+    def broken(device, *shape):
+        def step(*args):
+            raise RuntimeError("the tracking step failed")
+        return step, None
+
+    monkeypatch.setattr(bench, "flagship", broken)
+    with pytest.raises(RuntimeError, match="the tracking step failed"):
+        bench.bench(cuda, window=dict(n_kf=8, n_fixed=2, n_pts=256, obs_per_kf=48),
+                    frontend=(240, 376, 256))
+
+
+@pytest.mark.gpu
+def test_failed_rank_raises_on_the_card(cuda):
+    """A rank's exception comes back with its traceback; more ranks than
+    cards raise before any process starts."""
+    import operator
+
+    from monoorbslam3_tpu_torch.parallel import multihost
+
+    with pytest.raises(RuntimeError, match="ZeroDivisionError"):
+        multihost.run_ranks(operator.truediv, 1, "cuda", args=(1, 0), timeout=300)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks need {n} cards"):
+        multihost.run_ranks(operator.truediv, n, "cuda", args=(1, 1))
