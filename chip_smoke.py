@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's twelve paths, each with the kernel launch counts set to 0 just before
-it and read just after:
+port's thirteen paths, each with the kernel launch counts set to 0 just
+before it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
    finish_features -> coarse stage -> local stage) over 40 rendered
@@ -58,8 +58,8 @@ it and read just after:
    large-D route when a full polish holds more than local_k keyframes),
    held to the JAX package's run of the same world
    (`experiments/port_system_jax.py`) and the world's bounds; then a
-   resume (`load_state` of its checkpoint into a fresh System, the next 40
-   frames) and an async run (`async_mapper=True`, 200 frames);
+   resume (`load_state` of its checkpoint into a fresh System, the next 20
+   frames) and an async run (`async_mapper=True`, 100 frames);
 10. dataset CLI: the user's entry point over a dataset on disk,
    `runners.datasets.main(["euroc", ...])` over 200 frames (10 s) of the
    track map's world and stream written in the EuRoC layout (PNG,
@@ -91,7 +91,17 @@ it and read just after:
    package's run of it (`experiments/port_e2e_jax.py`), with no kernel
    build after the warm-up; `measure.bench_scaling` at one NCCL rank
    (and two, which one card cannot hold: not measured); and
-   `graft_entry.dryrun_multichip(1)` in a spawned rank.
+   `graft_entry.dryrun_multichip(1)` in a spawned rank;
+13. battery: two of run_validation.py's worlds whole through the port's
+   validation runner (`runners.validation.run_world` and `score_world`,
+   the runner's `BatteryMeter` counting), their frames rendered by child
+   processes while paths 1-11 run: fastspin30 (600 frames of a 52 deg/s
+   sweep: the RECENTLY_LOST recoveries and the reference-keyframe match)
+   and corridor60 (600 frames of the forward profile at 10 fps, ~200
+   keyframes: full polishes on the grouped problem, K4's large-D route,
+   and past full_k on the stride subsample, K4's cluster route) (K1-K4),
+   held to run_validation.py's verdict and to the JAX package's runs of the
+   same worlds (`experiments/port_battery_jax.py`) by `battery_checks`.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
@@ -135,7 +145,7 @@ of `track_map_checks`, or the system world one of `system_world_checks`,
 `dataset_cli_checks` (the native loader must have built: the path fails
 with the compiler's output otherwise), or the sharded BA one of
 `sharded_ba_checks`, or the measuring entry points one of
-`measure_checks`. Prints, before the last line, the
+`measure_checks`, or the battery one of `battery_checks`. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -368,8 +378,8 @@ TM_ATE_FACTOR, TM_ATE_MAX_M, TM_COUNT_RTOL = 2.0, 0.10, 0.30
 SYSTEM_WORLD_SETTINGS = "synthetic_vocab.yaml"
 SYSTEM_WORLD_SPEC = "circle:t_end=32,fps=20"
 SYSTEM_WORLD_FRAMES = 600
-SYSTEM_RESUME_FRAMES = 40
-SYSTEM_ASYNC_FRAMES = 200
+SYSTEM_RESUME_FRAMES = 20
+SYSTEM_ASYNC_FRAMES = 100
 # the world's bounds (run_validation.py:51-52) and evaluate_sequences'
 # association window there (max_dt 0.05)
 SYSTEM_WORLD_ATE_BOUND_M, SYSTEM_WORLD_SCALE_BOUND, SYSTEM_WORLD_MAX_DT = 0.4, 0.12, 0.05
@@ -409,6 +419,42 @@ SW_GROUPED_MIN = 1.0
 # past it; D = 1440 is the full polish's K = 96)
 K4_SPD_DIMS = (12, 96, 465, 480, 768, 769, 1440)
 K4_RTOL = 1e-5
+# the battery's reduced systems past this condition number are held to
+# twice the plain version's backward error (`k4_backward`, the largest over
+# the systems of a label) and not to its forward error: past it the
+# rounding of an f32 factor sets the forward error (1e-6 at 1e5, up to 0.5
+# at 5e8 from float64), and two correct f32 Cholesky codes land 0.1x to 12x
+# apart, while the backward errors of both stay at 1e-9 to 3e-9. Below it
+# every system both forward errors stayed under K4_RTOL. The polishes reach
+# 1e7 and the capped polish past full_k 5e8 within their LM iterations
+# (corridor60 on the CPU, experiments/port_chol_ill_conditioned.py; on an
+# NVIDIA H100 80GB HBM3 at 700 W one of the battery's systems of condition
+# 2e5-7e5 lands 1.28e-5 from float64, past twice the plain version's 5.9e-6)
+K4_FWD_COND = 1e5
+
+
+def k4_split(label, calls):
+    """The systems of `calls` ((S, b) pairs) by their condition number:
+    {label: those up to K4_FWD_COND, label + ", cond > ...": the rest}
+    (a key only where it has systems), and the condition numbers."""
+    import torch
+
+    conds = [float(torch.linalg.cond(S.double()).max()) for S, _ in calls]
+    out = {}
+    for key, keep in ((label, lambda c: c <= K4_FWD_COND),
+                      (f"{label}, cond > {K4_FWD_COND:.0e}", lambda c: c > K4_FWD_COND)):
+        mine = [a for a, c in zip(calls, conds) if keep(c)]
+        if mine:
+            out[key] = mine
+    return out, conds
+
+
+def k4_backward(x, S, b):
+    """The normwise backward error of a solve, per system:
+    ||b - S x|| / (||S||_F ||x|| + ||b||), in float64."""
+    S, b, x = S.double(), b.double(), x.double()
+    r = (b[..., None] - S @ x[..., None]).squeeze(-1).norm(dim=-1)
+    return r / (S.flatten(-2).norm(dim=-1) * x.norm(dim=-1) + b.norm(dim=-1))
 
 # K2's eight launches a frame, in the order the tracking step makes them
 K2_CALLS = tuple(f"{stage} {radius} {direction}" for stage in ("coarse", "local")
@@ -1281,8 +1327,6 @@ def track_map(pipe, n_frames=TRACK_MAP_FRAMES, log=print):
     and host syncs (sync debug mode, `SyncLedger`) without the mapper's;
     per mapper step its host time and fetches. Syncs are attributed to the
     regions of TRACK_MAP_REGIONS. Returns (records, mapper steps, summary)."""
-    import importlib
-
     import torch
 
     from monoorbslam3_tpu_torch.backend.problems import Problems
@@ -1309,39 +1353,33 @@ def track_map(pipe, n_frames=TRACK_MAP_FRAMES, log=print):
     problems.warm_solvers()
     world = ImageWorld()
     host_cam = host_camera(pipe.profile)
-    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
-               for m, attr, name in TRACK_MAP_REGIONS]
     records, sync_sites = [], collections.Counter()
     _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
-    try:
-        with ledger.recording():
-            for i, t, img, imu in track_map_stream(world, host_cam, n_frames):
-                meter.frame = i
-                n_steps, n0, s0 = len(meter.steps), problems.syncs.n, ledger.n()
-                m0 = dict(ledger.counts)
-                t0 = time.perf_counter()
-                feats = finish_features(pipe.ext(pipe._up(img)), pipe.cam, pipe.ext.scale_factors)
-                feats["group"] = None  # no vocabulary
-                state, frame = tracker.track_feats(t, feats, imu)
-                sync()
-                dt = 1e3 * (time.perf_counter() - t0)
-                mine = meter.steps[n_steps:]
-                step_syncs = sum(m["syncs"] for m in mine)
-                rec = dict(frame=i, t=t, state=int(state), n_tracked=int(frame.n_tracked),
-                           imu_state=int(mapper.imu_state),
-                           frame_ms=dt - sum(m["host_ms"] for m in mine),
-                           fetches=problems.syncs.n - n0 - sum(m["fetches"] for m in mine),
-                           syncs=ledger.n() - s0 - step_syncs,
-                           regions={k: v - m0.get(k, 0) for k, v in ledger.counts.items()
-                                    if v - m0.get(k, 0)},
-                           n_kf=store.n_keyframes(), n_points=int(store.n_points()))
-                records.append(rec)
-                log(json.dumps(rec))
-                for m in mine:
-                    log(json.dumps({"mapper_step": m}))
-    finally:
-        for r in restore:
-            r()
+    with recorded(ledger, TRACK_MAP_REGIONS):
+        for i, t, img, imu in track_map_stream(world, host_cam, n_frames):
+            meter.frame = i
+            n_steps, n0, s0 = len(meter.steps), problems.syncs.n, ledger.n()
+            m0 = dict(ledger.counts)
+            t0 = time.perf_counter()
+            feats = finish_features(pipe.ext(pipe._up(img)), pipe.cam, pipe.ext.scale_factors)
+            feats["group"] = None  # no vocabulary
+            state, frame = tracker.track_feats(t, feats, imu)
+            sync()
+            dt = 1e3 * (time.perf_counter() - t0)
+            mine = meter.steps[n_steps:]
+            step_syncs = sum(m["syncs"] for m in mine)
+            rec = dict(frame=i, t=t, state=int(state), n_tracked=int(frame.n_tracked),
+                       imu_state=int(mapper.imu_state),
+                       frame_ms=dt - sum(m["host_ms"] for m in mine),
+                       fetches=problems.syncs.n - n0 - sum(m["fetches"] for m in mine),
+                       syncs=ledger.n() - s0 - step_syncs,
+                       regions={k: v - m0.get(k, 0) for k, v in ledger.counts.items()
+                                if v - m0.get(k, 0)},
+                       n_kf=store.n_keyframes(), n_points=int(store.n_points()))
+            records.append(rec)
+            log(json.dumps(rec))
+            for m in mine:
+                log(json.dumps({"mapper_step": m}))
     summary = track_map_summary(records, meter.steps, store, world.traj, umeyama_align)
     summary["launches"] = dict(cuda_lib.launches)
     summary["region_syncs"] = dict(ledger.counts)
@@ -1445,6 +1483,37 @@ def on_call(obj, name, note):
     setattr(obj, name, wrapped)
 
 
+def meter_system(syst, ledger, sync=lambda: None, async_mapper=False, log=lambda line: None):
+    """Puts the harness's meters in front of a System (either package's): a
+    `MapperMeter` before its mapper's `process` and a `FrameMeter` before
+    its `track`, both counting the fetches of its `Problems`' counter and
+    `ledger`'s host syncs, and calling `sync` after each frame and step.
+    Returns (frames, meter)."""
+    count = lambda: syst.problems.syncs.n
+    meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
+    syst.mapper.process = meter  # System._on_new_kf calls self.mapper.process
+    frames = FrameMeter(syst, meter, count, sync, ledger.n, async_mapper=async_mapper, log=log)
+    syst.track = frames
+    return frames, meter
+
+
+@contextlib.contextmanager
+def recorded(ledger, regions):
+    """`ledger.recording()`, with each (module under the port's package,
+    function, region name) of `regions` run inside its region until the
+    block ends."""
+    import importlib
+
+    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
+               for m, attr, name in regions]
+    try:
+        with ledger.recording():
+            yield ledger
+    finally:
+        for r in restore:
+            r()
+
+
 def _stats(xs):
     xs = np.asarray(xs, np.float64)
     if not len(xs):
@@ -1491,11 +1560,19 @@ EXPORTS = ("save_keyframe_trajectory", "save_velocity_and_bias", "save_point_clo
            "save_keyframe_depth")
 
 
+# the environment of the render children: one thread each (numpy's BLAS
+# would start one a core), and `nice` below the driving process, whose host
+# time is what the paths measure
+_CHILD_ENV = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+                  MKL_NUM_THREADS="1")
+_CHILD_NICE = 10
+
 # the child process of `_Prefetched`: renders SyntheticDataset(spec) on a
 # CPU rig of the settings file and writes each frame, pickled, to its
 # standard output (its prints, if any, go to standard error)
 _RENDER_CHILD = """
 import os, pickle, sys
+os.nice({nice!r})
 out = os.fdopen(os.dup(1), "wb")
 os.dup2(2, 1)
 sys.path.insert(0, {root!r})
@@ -1525,8 +1602,9 @@ class _Prefetched:
 
     def __init__(self, spec, settings_path):
         code = _RENDER_CHILD.format(root=str(Path(__file__).resolve().parent),
-                                    settings=str(settings_path), spec=spec)
-        self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE)
+                                    settings=str(settings_path), spec=spec, nice=_CHILD_NICE)
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                     env=_CHILD_ENV)
         self.pending = None
 
     def frames(self):
@@ -1599,8 +1677,6 @@ def system_world(device, out_dir, n_frames=SYSTEM_WORLD_FRAMES, log=print):
     The launch counts are set to 0 after the warm-up. Returns (records,
     mapper steps, summary, the stream to resume from, the checkpoint); the
     caller closes the stream (`system_resume` does)."""
-    import importlib
-
     import torch
 
     from monoorbslam3_tpu_torch.config import build_system
@@ -1618,33 +1694,24 @@ def system_world(device, out_dir, n_frames=SYSTEM_WORLD_FRAMES, log=print):
     syst.warmup()
     warmup_s = time.perf_counter() - t0
     ledger = SyncLedger(on_card)
-    count = lambda: syst.problems.syncs.n
-    meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
-    syst.mapper.process = meter  # System._on_new_kf calls self.mapper.process
     # the keyframes each full polish holds, and the tracker's fallbacks to
     # the node-gated reference-keyframe match
     polishes, ref_kf_matches = [], []
     on_call(syst.problems, "full_inertial_optimize",
             lambda store, *a, **k: polishes.append(store.n_keyframes()))
     on_call(syst.tracking, "_match_against_ref_kf", lambda *a: ref_kf_matches.append(1))
-    frames = FrameMeter(syst, meter, count, sync, ledger.n, log=log)
-    syst.track = frames
+    frames, meter = meter_system(syst, ledger, sync, log=log)
     dataset = SyntheticDataset(SYSTEM_WORLD_SPEC, syst.camera, syst.calib)
     stream = _Prefetched(SYSTEM_WORLD_SPEC, SETTINGS / SYSTEM_WORLD_SETTINGS)
-    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
-               for m, attr, name in SYSTEM_WORLD_REGIONS]
     _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
     t0 = time.perf_counter()
     try:
-        with ledger.recording():
+        with recorded(ledger, SYSTEM_WORLD_REGIONS):
             run_sequence(syst, stream, max_frames=n_frames, progress_every=0,
                          log=lambda line: None)
     except BaseException:
         stream.close()
         raise
-    finally:
-        for r in restore:
-            r()
     sync()
     run_s = time.perf_counter() - t0
     launches = dict(cuda_lib.launches)
@@ -1688,11 +1755,7 @@ def system_resume(device, ckpt, stream, n_frames=SYSTEM_RESUME_FRAMES, log=print
 
     syst = build_system(str(SETTINGS / SYSTEM_WORLD_SETTINGS), device=device)
     syst.load_state(ckpt)
-    count = lambda: syst.problems.syncs.n
-    meter = MapperMeter(syst.mapper.process, count)
-    syst.mapper.process = meter
-    frames = FrameMeter(syst, meter, count, log=log)
-    syst.track = frames
+    frames, _ = meter_system(syst, SyncLedger(False), log=log)
     try:
         run_sequence(syst, stream, max_frames=n_frames, progress_every=0, log=lambda line: None)
     finally:
@@ -1721,11 +1784,7 @@ def system_async(device, out_dir, n_frames=SYSTEM_ASYNC_FRAMES, log=print):
                         async_mapper=True)
     syst.warmup()
     ledger = SyncLedger(on_card)
-    count = lambda: syst.problems.syncs.n
-    meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
-    syst.mapper.process = meter
-    frames = FrameMeter(syst, meter, count, sync, ledger.n, async_mapper=True, log=log)
-    syst.track = frames
+    frames, meter = meter_system(syst, ledger, sync, async_mapper=True, log=log)
     dataset = SyntheticDataset(SYSTEM_WORLD_SPEC, syst.camera, syst.calib)
     stream = _Prefetched(SYSTEM_WORLD_SPEC, SETTINGS / SYSTEM_WORLD_SETTINGS)
     try:
@@ -1907,7 +1966,8 @@ def write_euroc_dataset(root, n_frames=DATASET_FRAMES):
 
 # the child process of `DatasetWriter`
 _DATASET_CHILD = """
-import sys
+import os, sys
+os.nice({nice!r})
 sys.path.insert(0, {root!r})
 import torch
 torch.set_num_threads(1)
@@ -1925,9 +1985,9 @@ class DatasetWriter:
     def __init__(self, out, n_frames=DATASET_FRAMES):
         self.out = str(out)
         code = _DATASET_CHILD.format(root=str(Path(__file__).resolve().parent), out=self.out,
-                                     n=n_frames)
+                                     n=n_frames, nice=_CHILD_NICE)
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen([sys.executable, "-c", code])
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=_CHILD_ENV)
         self.seconds = None
 
     def wait(self, timeout=900):
@@ -1983,7 +2043,6 @@ def dataset_cli(device, root, out_dir, log=print):
     the viewer's PNGs, and `evaluation.plots.main` on the export (its
     numbers alone, `compare_trajectories`, where matplotlib is missing).
     Returns (records, mapper steps, summary)."""
-    import importlib
     import importlib.util
 
     import torch
@@ -2013,11 +2072,7 @@ def dataset_cli(device, root, out_dir, log=print):
 
     def build_system(*a, **k):
         syst = inner_build(*a, **k)
-        count = lambda: syst.problems.syncs.n
-        meter = MapperMeter(syst.mapper.process, count, sync, ledger.n)
-        syst.mapper.process = meter
-        frames = FrameMeter(syst, meter, count, sync, ledger.n, log=log)
-        syst.track = frames
+        frames, meter = meter_system(syst, ledger, sync, log=log)
         built.update(system=syst, meter=meter, frames=frames)
         _zero(cuda_lib.launches)  # the path starts here
         return syst
@@ -2034,17 +2089,13 @@ def dataset_cli(device, root, out_dir, log=print):
         argv += [flag, str(path)]
     if viewer_dir is not None:
         argv += ["--viewer-dir", str(viewer_dir)]
-    restore = [ledger.wrap(importlib.import_module(f"monoorbslam3_tpu_torch.{m}"), attr, name)
-               for m, attr, name in SYSTEM_WORLD_REGIONS]
     config.build_system, datasets.euroc_dataset = build_system, euroc_dataset
     t0 = time.perf_counter()
     try:
-        with ledger.recording():
+        with recorded(ledger, SYSTEM_WORLD_REGIONS):
             datasets.main(argv)
     finally:
         config.build_system, datasets.euroc_dataset = inner_build, inner_euroc
-        for r in restore:
-            r()
     sync()
     run_s = time.perf_counter() - t0
     syst, meter, frames = built["system"], built["meter"], built["frames"]
@@ -2643,6 +2694,190 @@ def measure_checks(meas, on_card=True):
         if not (np.isfinite(r["sharded_cost"]) and np.isfinite(r["live_cost"])
                 and r["extracted_frames"] == r["ranks"]):
             fails.append(f"dryrun_multichip: rank {r['rank']} {r}")
+    return fails
+
+
+# path 13, the battery: two of run_validation.py's worlds whole (its table
+# is `runners.validation.WORLDS`), through the port's runner
+# (`runners.validation.run_world`, then `score_world`: run_validation.py's
+# row and verdict) on the card, each reaching what no earlier path does:
+# fastspin30 (settings/synthetic.yaml, 600 frames at 20 fps of a 52 deg/s
+# sweep: the tracker's RECENTLY_LOST recoveries and its reference-keyframe
+# match) and corridor60 (settings/synthetic_forward.yaml, the forward
+# profile with its optical axis on +x body, 600 frames at 10 fps: ~200
+# keyframes, so its full polishes take the grouped problem between local_k
+# and full_k keyframes, K4's large-D route, and the stride subsample past
+# full_k, K4's cluster route). Child processes render their frames while
+# paths 1-11 run.
+BATTERY_WORLDS = ("fastspin30", "corridor60")
+# the JAX package's runs of the same worlds on the CPU
+# (experiments/port_battery_jax.py --seeds 0,1,2,3; PERF.md records the
+# runs): run_validation.py's row at seed 0 of the tracker's RANSAC draws
+# (the default), its RECENTLY_LOST frames, polishes by branch and
+# reference-keyframe matches, the most fetches a tracked frame made over
+# seeds 0-3, and the ATE and keyframe counts of seeds 0-3
+JAX_BATTERY = {
+    "fastspin30": dict(frames=600, ok_frames=595, ok_ratio=595 / 600, lost_events=0,
+                       recently_lost_frames=0, n_keyframes=110, kf_created_total=128,
+                       imu_state=2, imu_init_t=2.7, ate_rmse=0.02171511820379242,
+                       scale_err=0.044593508288812145, bound_ate=0.4, bound_scale=0.1,
+                       polishes=dict(n=9, window=2, grouped=5, subsampled=2), ref_kf_matches=2,
+                       # seed 2 fails the world's ATE bound (0.466 m), with
+                       # 14 RECENTLY_LOST frames
+                       max_fetches_tracked_frame=4,
+                       ate_over_seeds=[0.02171511820379242, 0.016282302760614497,
+                                       0.4657179335704575, 0.38697529119977053],
+                       n_keyframes_over_seeds=[110, 108, 150, 162],
+                       kf_created_over_seeds=[128, 130, 152, 162]),
+    "corridor60": dict(frames=600, ok_frames=599, ok_ratio=599 / 600, lost_events=0,
+                       recently_lost_frames=0, n_keyframes=197, kf_created_total=197,
+                       imu_state=2, imu_init_t=6.4, ate_rmse=1.4919797487702016,
+                       scale_err=0.11875832320333823, bound_ate=4.5, bound_scale=0.25,
+                       polishes=dict(n=17, window=2, grouped=6, subsampled=9), ref_kf_matches=0,
+                       max_fetches_tracked_frame=3,
+                       ate_over_seeds=[1.4919797487702016, 1.9269808904578338,
+                                       2.7459244163101584, 1.6800259803721087],
+                       n_keyframes_over_seeds=[197, 198, 198, 198],
+                       kf_created_over_seeds=[197, 198, 198, 198]),
+}
+# the gates beside run_validation.py's verdict (the world's ATE and scale
+# bounds, no LOST event): an OK ratio at least JAX's less 0.05 and the
+# inertial init finished (imu_state 2); keyframes kept and created within
+# 30% of the range of JAX's seeds; the ATE at most twice the largest over
+# JAX's seeds; a tracked frame (OK, after an OK frame: a bootstrap's
+# batched SVDs sync) fetches no more often than the stages it ran fetch in
+# either package (BATTERY_*_FETCHES: 3 a frame that tracks the last frame,
+# one more for each fall-back stage) and syncs no more than it fetches; a
+# mapper step syncs no more than it fetches; no kernel build after the
+# warm-up; the device memory the
+# allocator holds at the last progress line within 25% of the line at
+# frame 300 (every store has a fixed capacity)
+BATTERY_OK_SLACK, BATTERY_KF_RTOL, BATTERY_ATE_FACTOR = 0.05, 0.30, 2.0
+# the fetches of a tracked frame: one at its start, and one a stage it
+# runs, but two for the reference-keyframe match (its match, then its pose
+# LM; the JAX package's match reads its result with np.asarray, which its
+# experiment's count of `fetch` calls misses: JAX's frames count 3, and 4
+# with a fall-back stage)
+BATTERY_FRAME_FETCHES = 1
+BATTERY_STAGE_FETCHES = {"_match_against_last": 1, "_match_against_last_kf": 1,
+                         "_match_against_ref_kf": 2, "_track_local_map": 1}
+BATTERY_MEM_FRAME, BATTERY_MEM_RTOL = 300, 0.25
+# the kernels each world must launch: K1-K4 (cluster route) in both, and
+# on corridor60 K4's large-D route and a polish past full_k too
+BATTERY_KERNELS = {"fastspin30": ("gather_patches", "match_rows", "hamming", "chol_solve"),
+                   "corridor60": ("gather_patches", "match_rows", "hamming", "chol_solve",
+                                  "chol_solve_l2")}
+BATTERY_MIN_SUBSAMPLED = {"fastspin30": 0, "corridor60": 1}
+
+
+def battery_stream(name):
+    """A battery world's frames, rendered by a child process (`_Prefetched`)
+    and read to the end on a thread (`_Drained`); the child is stopped when
+    this process exits."""
+    from monoorbslam3_tpu_torch.runners import validation
+
+    settings, spec, _, _ = validation.WORLDS[name]
+    stream = _Prefetched(spec, Path(validation.REPO) / settings)
+    atexit.register(stream.close)
+    return _Drained(stream)
+
+
+def battery_world(device, name, frames, out_dir, log=lambda line: None):
+    """One battery world on `device` through `runners.validation.run_world`
+    (build_system, warmup, the stream, shutdown, the keyframe trajectory,
+    the runner's `BatteryMeter`) and `score_world`, with the system world's
+    meters put in after the warm-up (`meter_system`; syncs attributed to
+    SYSTEM_WORLD_REGIONS) and the launch counts set to 0 there. `frames`:
+    the stream (`battery_stream`). Returns dict(row: the runner's row,
+    records, steps: the meters', region_syncs, sync_sites)."""
+    import torch
+
+    from monoorbslam3_tpu_torch.ops import cuda_lib
+    from monoorbslam3_tpu_torch.runners import validation
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ledger = SyncLedger(on_card)
+    metered = {}
+
+    allowance = collections.Counter()  # frame -> the fetches of the stages it ran
+
+    def instrument(syst):
+        frames_, metered["meter"] = meter_system(syst, ledger, sync, log=log)
+        metered["frames"] = frames_
+        for stage, n in BATTERY_STAGE_FETCHES.items():
+            on_call(syst.tracking, stage,
+                    lambda *a, n=n: allowance.update({len(frames_.records): n}))
+        _zero(cuda_lib.launches)  # the warm-up's launches are not the path's
+        return recorded(ledger, SYSTEM_WORLD_REGIONS)
+
+    settings, spec, _, _ = validation.WORLDS[name]
+    info = validation.run_world(name, settings, spec, out_dir, device, frames=frames,
+                                instrument=instrument)
+    records = metered["frames"].records
+    for r in records:
+        r["fetch_allowance"] = BATTERY_FRAME_FETCHES + allowance[r["frame"]]
+    return dict(row=validation.score_world(name, info), records=records,
+                steps=metered["meter"].steps, region_syncs=dict(ledger.counts),
+                sync_sites=dict(ledger.sites))
+
+
+def battery_checks(bat, on_card=True):
+    """The battery's gates on {world: `battery_world`'s result} against
+    JAX_BATTERY and the worlds' bounds (the fetch, sync and memory gates
+    only on the card, where they are counted). Returns the failures."""
+    fails = []
+    for name, w in bat.items():
+        ref, row, tag = JAX_BATTERY[name], w["row"], f"battery {name}"
+        if not row["ate_rmse"] <= row["bound_ate"]:
+            fails.append(f"{tag}: ATE {row['ate_rmse']} m > the world's {row['bound_ate']} m")
+        if not row["scale_err"] <= row["bound_scale"]:
+            fails.append(f"{tag}: scale error {row['scale_err']} > {row['bound_scale']}")
+        if row["lost_events"]:
+            fails.append(f"{tag}: {row['lost_events']} LOST events")
+        ok_min = ref["ok_ratio"] - BATTERY_OK_SLACK
+        if not row["ok_frames"] >= ok_min * row["frames"] or not row["frames"]:
+            fails.append(f"{tag}: {row['ok_frames']} of {row['frames']} frames OK, JAX's "
+                         f"ratio {ref['ok_ratio']}")
+        if row["imu_state"] != 2:
+            fails.append(f"{tag}: imu_state {row['imu_state']}")
+        for key, seeds in (("n_keyframes", ref["n_keyframes_over_seeds"]),
+                           ("kf_created_total", ref["kf_created_over_seeds"])):
+            lo, hi = (1 - BATTERY_KF_RTOL) * min(seeds), (1 + BATTERY_KF_RTOL) * max(seeds)
+            if not lo <= row[key] <= hi:
+                fails.append(f"{tag}: {key} {row[key]}, JAX's {seeds} over its seeds")
+        ate_max = BATTERY_ATE_FACTOR * max(ref["ate_over_seeds"])
+        if not row["ate_rmse"] <= ate_max:
+            fails.append(f"{tag}: ATE {row['ate_rmse']} m > {ate_max} m (twice JAX's largest "
+                         f"over its seeds)")
+        if any(row["kernel_builds_after_warmup"].values()):
+            fails.append(f"{tag}: kernel builds after the warm-up "
+                         f"{row['kernel_builds_after_warmup']}")
+        for k in BATTERY_KERNELS[name]:
+            if not row["launches"][k]:
+                fails.append(f"{tag}: kernel {k} was never launched")
+        if row["polishes"]["subsampled"] < BATTERY_MIN_SUBSAMPLED[name]:
+            fails.append(f"{tag}: {row['polishes']['subsampled']} full polishes past full_k")
+        if not on_card:
+            continue
+        for prev, r in zip(w["records"], w["records"][1:]):
+            if (prev["state"] == r["state"] == 2
+                    and not r["syncs"] <= r["fetches"] <= r["fetch_allowance"]):
+                fails.append(f"{tag}: frame {r['frame']} fetched {r['fetches']} times for "
+                             f"{r['fetch_allowance']} and synced {r['syncs']}")
+        for m in w["steps"]:
+            if m["syncs"] > m["fetches"]:
+                fails.append(f"{tag}: the mapper step of KF {m['kf']} synced {m['syncs']} "
+                             f"times for {m['fetches']} fetches")
+        for region, n in w["region_syncs"].items():
+            if n and region != "two-view bootstrap":
+                fails.append(f"{tag}: {n} host syncs inside the {region}")
+        census = row["memory"]["census"]
+        at = [c for c in census if c["frame"] == BATTERY_MEM_FRAME]
+        if not at or not (abs(census[-1]["alloc_mb"] - at[0]["alloc_mb"])
+                          <= BATTERY_MEM_RTOL * at[0]["alloc_mb"]):
+            fails.append(f"{tag}: device memory {census[-1] if census else None} at the last "
+                         f"progress line, {at} at frame {BATTERY_MEM_FRAME}")
     return fails
 
 
@@ -3258,6 +3493,8 @@ def main(argv=None) -> int:
     e2e_stream = _Prefetched(e2e_spec, e2e.REPO / e2e_settings)
     atexit.register(e2e_stream.close)
     e2e_reader = _Drained(e2e_stream)
+    # path 13's two worlds, rendered by two more children meanwhile
+    battery_readers = {name: battery_stream(name) for name in BATTERY_WORLDS}
 
     # -- path 1, tracking: the 40-frame slice drive ---------------------------
     pipe = TorchPipe(dev)
@@ -3634,6 +3871,75 @@ def main(argv=None) -> int:
           f"{e['n_keyframes']} keyframes (JAX's {JAX_E2E_CIRCLE10['n_keyframes']}), kernel "
           f"builds after the warm-up {json.dumps(e['kernel_builds_after_warmup'])}")
 
+    # -- path 13, the battery: two whole worlds through runners.validation -----
+    # (battery_world sets the counts to 0 itself, after each world's warm-up;
+    # the path's launches are the two worlds' summed)
+    bat_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_battery_")
+    bat, bat_launches = {}, collections.Counter()
+    t0 = time.perf_counter()
+    with _Capture(match_pallas, "_match_rows_cuda") as bt_k2, \
+            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as bt_k3, \
+            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as bt_k1, \
+            _Capture(chol_pallas, "chol_solve_cluster", maxlen=24) as bt_k4, \
+            _Capture(chol_pallas, "chol_solve_l2", maxlen=12) as bt_k4l2:
+        for name in BATTERY_WORLDS:
+            t1 = time.perf_counter()
+            bat[name] = battery_world(dev, name, battery_readers.pop(name), bat_tmp.name)
+            bat[name]["seconds"] = time.perf_counter() - t1
+            bat_launches.update(bat[name]["row"]["launches"])
+    torch.cuda.synchronize()
+    bat_tmp.cleanup()
+    print(f"battery ({time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{n} {w['seconds']:.1f}" for n, w in bat.items())
+          + f"); launches {json.dumps(bat_launches)}")
+    for name, w in bat.items():
+        row, ref = w["row"], JAX_BATTERY[name]
+        print(f"battery {name} states:", "".join(str(r["state"]) for r in w["records"]))
+        print(f"battery {name} fetches / syncs a frame:",
+              [(r["fetches"], r["syncs"]) for r in w["records"]])
+        print(f"battery {name} mapper steps (frame, KF, ms, fetches, syncs):",
+              [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+               for m in w["steps"]])
+        print(f"battery {name} row:", json.dumps({k: v for k, v in row.items()
+                                                  if k not in ("est", "gt")}))
+        print(f"battery {name} region syncs {json.dumps(w['region_syncs'])}, sites "
+              f"{json.dumps(w['sync_sites'])}")
+        print(f"battery {name} against the JAX package on the CPU: {json.dumps(ref)}")
+        print(f"battery {name} ({card}): OK {row['ok_frames']}/{row['frames']} (JAX's "
+              f"{ref['ok_frames']}), LOST {row['lost_events']}, RECENTLY_LOST frames "
+              f"{row['recently_lost_frames']} (JAX's {ref['recently_lost_frames']}), "
+              f"reference-keyframe matches {row['ref_kf_matches']} (JAX's "
+              f"{ref['ref_kf_matches']}), keyframes {row['n_keyframes']} / "
+              f"{row['kf_created_total']} (JAX's {ref['n_keyframes']} / "
+              f"{ref['kf_created_total']}), ATE {row['ate_rmse']:.5f} m (JAX's "
+              f"{ref['ate_rmse']:.5f}, over its seeds {json.dumps(ref['ate_over_seeds'])}, "
+              f"bound {row['bound_ate']}), scale error {row['scale_err']:.5f} (JAX's "
+              f"{ref['scale_err']:.5f}, bound {row['bound_scale']}), polishes "
+              f"{json.dumps({k: v for k, v in row['polishes'].items() if k != 'kf_counts'})} "
+              f"(JAX's {json.dumps(ref['polishes'])}); frame p50 {row['frame_ms']['p50']:.1f} / "
+              f"p99 {row['frame_ms']['p99']:.1f} ms, mapper step p50 "
+              f"{row['mapper_ms']['p50']:.1f} / p99 {row['mapper_ms']['p99']:.1f} ms; device "
+              f"memory {json.dumps(row['memory']['first'])} -> "
+              f"{json.dumps(row['memory']['last'])}, peak RSS {row['peak_rss_mb']:.0f} MB")
+    for label, a in zip(K2_CALLS, bt_k2.calls):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 battery {label}")
+    for a in bt_k3.calls:
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError("K3 on the battery's searches disagrees with its plain version")
+    for a in bt_k1.calls:
+        got = pallas_kernels.gather_patches_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+            raise RuntimeError("K1 on the battery's last frame disagrees with its plain version")
+    print(f"battery: K2 on the last frame's {len(bt_k2.calls)} launches, K3 on the last "
+          f"{len(bt_k3.calls)} searches, K1 on the last frame: bit-identical; K4's last "
+          f"{len(bt_k4.calls)} cluster-route and {len(bt_k4l2.calls)} large-D systems join the "
+          f"K4 phase")
+
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
     if ab_chol is not None and one_block_solver(ab_chol) is not None:
@@ -3717,6 +4023,7 @@ def main(argv=None) -> int:
                         launches_dataset_cli=dc_launches["gather_patches"],
                         launches_sharded_ba=shb_launches["gather_patches"],
                         launches_measure=meas_launches["gather_patches"],
+                        launches_battery=bat_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
@@ -3788,6 +4095,7 @@ def main(argv=None) -> int:
                         launches_dataset_cli=dc_launches["match_rows"],
                         launches_sharded_ba=shb_launches["match_rows"],
                         launches_measure=meas_launches["match_rows"],
+                        launches_battery=bat_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -3844,6 +4152,7 @@ def main(argv=None) -> int:
                         launches_dataset_cli=dc_launches["hamming"],
                         launches_sharded_ba=shb_launches["hamming"],
                         launches_measure=meas_launches["hamming"],
+                        launches_battery=bat_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -3867,9 +4176,16 @@ def main(argv=None) -> int:
                "track map G=1": list(tm_k4.calls), "system world G=1": list(sw_k4.calls),
                **({"system world large-D": list(sw_k4l2.calls)} if sw_k4l2.calls else {}),
                **seeded}
+    # the battery's systems (the last local windows' and polishes' of its
+    # path), split by their condition number at K4_FWD_COND
+    for label, cap in (("battery G=1", bt_k4), ("battery large-D", bt_k4l2)):
+        parts, conds = k4_split(label, list(cap.calls))
+        systems.update(parts)
+        print(f"K4 {label}: condition numbers of its {len(conds)} systems "
+              f"{json.dumps([float(f'{c:.3g}') for c in conds])}")
     route_launches = {}
     for label, items in systems.items():
-        e64, ep, epl64 = 0.0, 0.0, 0.0
+        e64, ep, epl64, bw, bwp = 0.0, 0.0, 0.0, 0.0, 0.0
         n0 = dict(cuda_lib.launches)
         for S, b in items:
             x = chol_pallas.chol_solve_cuda(S, b)
@@ -3878,6 +4194,8 @@ def main(argv=None) -> int:
             e64 = max(e64, float(_rel(x, x64).max()))
             ep = max(ep, float(_rel(x, xp).max()))
             epl64 = max(epl64, float(_rel(xp, x64).max()))
+            bw = max(bw, float(k4_backward(x, S, b).max()))
+            bwp = max(bwp, float(k4_backward(xp, S, b).max()))
             k4_abs = max(k4_abs, float((x - xp).abs().max()))
         torch.cuda.synchronize()
         route_launches[label] = {k: cuda_lib.launches[k] - n0[k] for k in ("chol_solve", "chol_solve_l2")}
@@ -3885,16 +4203,24 @@ def main(argv=None) -> int:
         # and the same refinement step) lies further than that from
         # float64: then the system's conditioning, not the kernel, sets the
         # error of an f32 factor, and the kernel is held to twice the plain
-        # version's
-        tol = max(K4_RTOL, 2.0 * epl64)
-        k4_f64, k4_plain = max(k4_f64, e64), max(k4_plain, ep)
-        k4_checks[label] = dict(n=len(items), vs_f64=e64, vs_plain=ep, plain_vs_f64=epl64, tol=tol)
+        # version's; past K4_FWD_COND (battery systems), twice the plain
+        # version's backward error
+        backward = "cond >" in label
+        tol = 2.0 * bwp if backward else max(K4_RTOL, 2.0 * epl64)
+        if not backward:
+            k4_f64, k4_plain = max(k4_f64, e64), max(k4_plain, ep)
+        k4_checks[label] = dict(n=len(items), vs_f64=e64, vs_plain=ep, plain_vs_f64=epl64, tol=tol,
+                                backward=bw, plain_backward=bwp, held_to="backward" if backward
+                                else "forward")
         D = items[-1][0].shape[-1]
         print(f"K4 {label}: {len(items)} systems of {tuple(items[-1][0].shape)}, route "
               f"{chol_pallas.route(D, dev)} {json.dumps(route_launches[label])}; max relative "
-              f"error {e64:.3e} vs float64, {ep:.3e} vs the plain version (bound {tol:.3g}; the "
-              f"plain version {epl64:.3e} vs float64)")
-        if not (e64 <= tol and ep <= tol):
+              f"error {e64:.3e} vs float64, {ep:.3e} vs the plain version (the plain version "
+              f"{epl64:.3e} vs float64); backward error {bw:.3e} (the plain version's "
+              f"{bwp:.3e}); held to its {k4_checks[label]['held_to']} error, bound {tol:.3g}")
+        if backward and not bw <= tol:
+            raise RuntimeError(f"K4 {label}: backward error {bw:.3g} exceeds {tol:.3g}")
+        if not backward and not (e64 <= tol and ep <= tol):
             raise RuntimeError(f"K4 {label} exceeds {tol:.3g} relative error")
         want = "chol_solve" if chol_pallas.route(D, dev) == "cluster" else "chol_solve_l2"
         if route_launches[label][want] != len(items) or sum(route_launches[label].values()) != len(items):
@@ -3988,6 +4314,7 @@ def main(argv=None) -> int:
                         launches_dataset_cli=dc_launches["chol_solve"],
                         launches_sharded_ba=shb_launches["chol_solve"],
                         launches_measure=meas_launches["chol_solve"],
+                        launches_battery=bat_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -4004,6 +4331,7 @@ def main(argv=None) -> int:
                         launches_dataset_cli=dc_launches["chol_solve_l2"],
                         launches_sharded_ba=shb_launches["chol_solve_l2"],
                         launches_measure=meas_launches["chol_solve_l2"],
+                        launches_battery=bat_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -4075,7 +4403,9 @@ def main(argv=None) -> int:
                             ("measure's e2e run", "gather_patches", meas["e2e"]["launches"]),
                             ("measure's e2e run", "match_rows", meas["e2e"]["launches"]),
                             ("measure's e2e run", "hamming", meas["e2e"]["launches"]),
-                            ("measure's e2e run", "chol_solve", meas["e2e"]["launches"])):
+                            ("measure's e2e run", "chol_solve", meas["e2e"]["launches"]),
+                            *((f"battery {n}", k, bat[n]["row"]["launches"])
+                              for n in BATTERY_WORLDS for k in BATTERY_KERNELS[n])):
         if counts[k] == 0:
             failures.append(f"kernel {k} was never launched by the {path} path")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -4098,6 +4428,7 @@ def main(argv=None) -> int:
     failures += dataset_cli_checks(dc, dc_records, dc_steps)
     failures += sharded_ba_checks(shb)
     failures += measure_checks(meas)
+    failures += battery_checks(bat)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:

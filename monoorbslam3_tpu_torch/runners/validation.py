@@ -18,15 +18,21 @@ Usage:  python -m monoorbslam3_tpu_torch.runners.validation [--out-tag t]
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ..frontend.tracking import RECENTLY_LOST
 
 # name: (settings, spec, ATE bound [m], scale-error bound), as
 # run_validation.py:34-74 fixes them: the bounds are set for the
@@ -44,7 +50,7 @@ WORLDS = {
     "noisy60": ("settings/synthetic.yaml", "noisy:t_end=60,fps=20", 1.2, 0.15),
 }
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _rss_mb() -> float:
@@ -52,38 +58,209 @@ def _rss_mb() -> float:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
 
 
-def run_world(name, settings, spec, out_dir, device="cuda"):
+def _stats(xs):
+    """p50, p99, mean, max and n of a list of host times (None if empty)."""
+    if not xs:
+        return None
+    xs = np.asarray(xs, np.float64)
+    return dict(p50=float(np.percentile(xs, 50)), p99=float(np.percentile(xs, 99)),
+                mean=float(xs.mean()), max=float(xs.max()), n=len(xs))
+
+
+def _wrap(obj, name, make):
+    """Replace obj.name (an instance attribute shadows the class's method,
+    so the object's own calls of self.name come through it too) by
+    make(the bound original)."""
+    setattr(obj, name, make(getattr(obj, name)))
+
+
+class BatteryMeter:
+    """The battery's counters on one System (either package's: every name
+    it wraps exists in both). Each is read off host state the run already
+    keeps, so counting adds no host sync:
+
+    - each `System.track` call's host time, the mapper steps it ran on its
+      own thread taken out, and each mapper step's (`mapper.process`); the
+      frames it returns RECENTLY_LOST;
+    - the full polishes (`Problems.full_inertial_optimize`) with the
+      keyframe count at the call, which picks the branch: the regular
+      window up to `local_k` keyframes, the grouped problem up to `full_k`,
+      the subsample beyond it (`branch`);
+    - the tracker's reference-keyframe matches (`_match_against_ref_kf`);
+    - the map store's keyframe slots: culled slots recycled
+      (`_alloc_kf_slot` once every slot has been used, with a free one),
+      keyframes evicted at capacity (`_evict_for_slot`), and the point
+      evictions at capacity (`_evict_points`: calls and points);
+    - the memory census of the progress lines (`census`), which the runner
+      appends to."""
+
+    def __init__(self, system):
+        self.frame_ms, self.steps = [], []  # steps: (host ms, initial)
+        self.recently_lost_frames = 0
+        self.polish_kf, self.ref_kf_matches = [], 0
+        self.kf_slots_recycled = self.kf_evicted = 0
+        self.pt_evictions = self.pts_evicted = 0
+        self.census = []
+        self.local_k, self.full_k = system.problems.local_k, system.problems.full_k
+        self.polish_mode = system.problems.full_polish_mode
+        self._step_ms_in_frame, self._frame_thread = 0.0, None
+        store = system.store
+
+        def track(inner):
+            def timed(*a, **k):
+                self._step_ms_in_frame, self._frame_thread = 0.0, threading.get_ident()
+                t0 = time.perf_counter()
+                try:
+                    state = inner(*a, **k)
+                finally:
+                    self.frame_ms.append(1e3 * (time.perf_counter() - t0)
+                                         - self._step_ms_in_frame)
+                    self._frame_thread = None
+                self.recently_lost_frames += state == RECENTLY_LOST
+                return state
+            return timed
+
+        def process(inner):
+            def timed(k, initial=False, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return inner(k, initial=initial, **kw)
+                finally:
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    self.steps.append((ms, bool(initial)))
+                    if self._frame_thread == threading.get_ident():
+                        self._step_ms_in_frame += ms
+            return timed
+
+        def polish(inner):
+            def counted(st, *a, **k):
+                self.polish_kf.append(st.n_keyframes())
+                return inner(st, *a, **k)
+            return counted
+
+        def ref_kf(inner):
+            def counted(*a, **k):
+                self.ref_kf_matches += 1
+                return inner(*a, **k)
+            return counted
+
+        def alloc(inner):
+            def counted():
+                if store._next_kf_slot >= store.max_kf and store._free_kf:
+                    self.kf_slots_recycled += 1
+                return inner()
+            return counted
+
+        def evict_kf(inner):
+            def counted():
+                self.kf_evicted += 1
+                return inner()
+            return counted
+
+        def evict_pts(inner):
+            def counted(*a, **k):
+                n0 = int(store.pt_valid.sum())
+                out = inner(*a, **k)
+                self.pt_evictions += 1
+                self.pts_evicted += n0 - int(store.pt_valid.sum())
+                return out
+            return counted
+
+        _wrap(system, "track", track)
+        _wrap(system.mapper, "process", process)
+        _wrap(system.problems, "full_inertial_optimize", polish)
+        _wrap(system.tracking, "_match_against_ref_kf", ref_kf)
+        _wrap(store, "_alloc_kf_slot", alloc)
+        _wrap(store, "_evict_for_slot", evict_kf)
+        _wrap(store, "_evict_points", evict_pts)
+
+    def branch(self, n_kf):
+        """The branch a full polish over n_kf keyframes takes
+        (`Problems.full_inertial_optimize`): "window", "grouped" (K4's
+        large-D route at D = 15 full_k) or "subsampled" (beyond full_k; in
+        the "hybrid" mode the stride subsample capped at local_k)."""
+        if n_kf <= self.local_k:
+            return "window"
+        return "grouped" if n_kf <= self.full_k else "subsampled"
+
+    def counters(self):
+        """The counts, as a row's fields."""
+        by = collections.Counter(self.branch(n) for n in self.polish_kf)
+        return {
+            "polishes": dict(n=len(self.polish_kf), mode=self.polish_mode,
+                             window=by["window"], grouped=by["grouped"],
+                             subsampled=by["subsampled"], kf_counts=list(self.polish_kf)),
+            "kf_slots_recycled": self.kf_slots_recycled, "kf_evicted": self.kf_evicted,
+            "pt_evictions": self.pt_evictions, "pts_evicted": self.pts_evicted,
+            "recently_lost_frames": self.recently_lost_frames,
+            "ref_kf_matches": self.ref_kf_matches,
+            "n_mapper_steps": sum(1 for _, initial in self.steps if not initial),
+        }
+
+    def times(self):
+        """Frame and mapper-step host times (ms; the bootstrap's initial
+        steps left out of the steps)."""
+        return {"frame_ms": _stats(self.frame_ms),
+                "mapper_ms": _stats([ms for ms, initial in self.steps if not initial])}
+
+
+def run_world(name, settings, spec, out_dir, device="cuda", frames=None, instrument=None):
     """One world through the public path on `device`; writes its estimate
     and ground truth into out_dir and returns run_validation.py's row
     fields (frames, OK frames, LOST events and their times, keyframes,
-    imu_state, wall seconds)."""
+    imu_state, wall seconds) and the battery's own (`BatteryMeter`'s
+    counters and, on the card, its times; the memory
+    census of the first and last progress lines and the peak host RSS;
+    the hand kernels' launches, and their builds after the warm-up).
+    `frames`: where the frames come from, an object with the dataset's
+    `frames()` (by default the dataset itself). `instrument(system)`, if
+    given, runs after the warm-up and the meter and may return a context
+    manager, which is entered around the stream."""
     import torch
 
     from ..config import build_system
+    from ..measure.timing import NOT_MEASURED, device_identity
+    from ..ops import cuda_lib
     from .datasets import run_sequence
     from .synth import SyntheticDataset
 
     est = os.path.join(out_dir, f"{name}_est.txt")
     gt = os.path.join(out_dir, f"{name}_gt.txt")
-    system = build_system(os.path.join(_REPO, settings), device=device)
+    system = build_system(os.path.join(REPO, settings), device=device)
     dataset = SyntheticDataset(spec, system.camera, system.calib)
     dataset.save_ground_truth(gt)
     on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    system.warmup()
+    warmup_s = time.perf_counter() - t0
+    meter = BatteryMeter(system)
+    ctx = (instrument(system) if instrument is not None else None) or contextlib.nullcontext()
+    built, launches0 = dict(cuda_lib.builds), dict(cuda_lib.launches)
 
     def log(msg):
-        # the host and device memory census of every progress line
-        dev = (f" cuda_alloc={torch.cuda.memory_allocated() / 2**20:.0f}MB"
-               if on_card else "")
-        print(f"{msg} | rss={_rss_mb():.0f}MB{dev}", flush=True)
+        # the host and device memory census of every progress line (the
+        # allocator's own counters: no device sync)
+        row = dict(frame=len(meter.frame_ms) - 1, rss_mb=_rss_mb())
+        dev = ""
+        if on_card:
+            row.update(alloc_mb=torch.cuda.memory_allocated() / 2**20,
+                       reserved_mb=torch.cuda.memory_reserved() / 2**20)
+            dev = f" cuda_alloc={row['alloc_mb']:.0f}MB cuda_reserved={row['reserved_mb']:.0f}MB"
+        if msg.startswith("frame "):
+            meter.census.append(row)
+        print(f"{msg} | rss={row['rss_mb']:.0f}MB{dev}", flush=True)
 
     t0 = time.perf_counter()
-    states = run_sequence(system, dataset, progress_every=100, log=log)
+    with ctx:
+        states = run_sequence(system, dataset if frames is None else frames,
+                              progress_every=100, log=log)
     wall = time.perf_counter() - t0
     system.shutdown()
     system.save_keyframe_trajectory(est)
     lost_at = [float(dataset.times[i]) for i in list(np.nonzero(states == 4)[0])]
     if lost_at:
         print(f"  lost/reset events at t = {lost_at}")
+    census = meter.census
     return {
         "est": est, "gt": gt, "frames": len(states),
         "ok_frames": int((states == 2).sum()),
@@ -93,6 +270,15 @@ def run_world(name, settings, spec, out_dir, device="cuda"):
         "kf_created_total": system.store.kf_created_total,
         "imu_state": int(system.mapper.imu_state),
         "wall_s": wall,
+        "device": device_identity(device),
+        "warmup_s": warmup_s if on_card else NOT_MEASURED,
+        **meter.counters(),
+        **(meter.times() if on_card else {"frame_ms": NOT_MEASURED, "mapper_ms": NOT_MEASURED}),
+        "memory": dict(first=census[0] if census else None, last=census[-1] if census else None,
+                       census=census),
+        "peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
+        "launches": {k: cuda_lib.launches[k] - launches0[k] for k in launches0},
+        "kernel_builds_after_warmup": {k: cuda_lib.builds[k] - built[k] for k in built},
     }
 
 
@@ -206,7 +392,7 @@ def _main_parallel(args):
                "--out-dir", args.out_dir, "--no-md"]
         log_path = os.path.join(args.out_dir, f"{name}.log")
         with open(log_path, "w") as lf:
-            rc = subprocess.call(cmd, stdout=lf, stderr=subprocess.STDOUT, cwd=_REPO)
+            rc = subprocess.call(cmd, stdout=lf, stderr=subprocess.STDOUT, cwd=REPO)
         if rc != 0:
             print(f"!! world {name} subprocess failed rc={rc} (log: {log_path})", flush=True)
             return [_failed_row(name)]

@@ -293,19 +293,25 @@ RUN_VALIDATION_ROW = {"est", "gt", "frames", "ok_frames", "lost_events", "lost_a
                       "n_keyframes", "kf_created_total", "imu_state", "wall_s", "name", "spec",
                       "ate_rmse", "scale_err", "path_len_m", "ate_pct_of_path", "matched",
                       "bound_ate", "bound_scale", "pass"}
+# the port's fields beside them (runners/validation.run_world)
+BATTERY_ROW = {"device", "warmup_s", "polishes", "kf_slots_recycled", "kf_evicted",
+               "pt_evictions", "pts_evicted", "recently_lost_frames", "ref_kf_matches",
+               "n_mapper_steps", "frame_ms", "mapper_ms", "memory", "peak_rss_mb", "launches",
+               "kernel_builds_after_warmup"}
 
 
 def test_validation_writes_run_validations_schema(tmp_path, monkeypatch):
     """A 0.3 s world through the battery runner on the CPU: the JSON row
-    keys of run_validation.py:184-193 and its Markdown table."""
+    keys of run_validation.py:184-193 with the port's battery fields beside
+    them, and its Markdown table."""
     monkeypatch.setitem(validation.WORLDS, "tiny", ("settings/synthetic.yaml",
                                                     "circle:t_end=0.3,fps=20", 0.8, 0.12))
     rows = validation.main(["--worlds", "tiny", "--device", "cpu", "--out-dir", str(tmp_path),
                             "--out-tag", "t"])
-    assert len(rows) == 1 and set(rows[0]) == RUN_VALIDATION_ROW
+    assert len(rows) == 1 and set(rows[0]) == RUN_VALIDATION_ROW | BATTERY_ROW
     assert rows[0]["frames"] == 6 and rows[0]["pass"] is False
     with open(tmp_path / "VALIDATION_t.json") as f:
-        assert set(json.load(f)[0]) == RUN_VALIDATION_ROW
+        assert set(json.load(f)[0]) == RUN_VALIDATION_ROW | BATTERY_ROW
     md = (tmp_path / "VALIDATION.md").read_text().splitlines()
     assert md[0] == "# Scale-stress validation battery"
     assert md[4].startswith("| world | spec | frames | tracked | lost | KFs (created) | ATE RMSE")
