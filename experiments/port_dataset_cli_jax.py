@@ -1,6 +1,6 @@
 """chip_smoke.py's dataset CLI path through the JAX package, on the CPU.
 
-Writes chip_smoke's EuRoC-layout dataset (`chip_smoke.write_euroc_dataset`:
+Writes chip_smoke's EuRoC-layout dataset (`chip_smoke.write_dataset(root, "euroc")`:
 200 frames of the track map's world and stream, the PNGs, `imu.txt`, the
 ground truth and the settings file; its renderer is the port's, whose
 frames are the JAX package's to the byte) and runs the JAX package's user
@@ -74,7 +74,7 @@ def main():
     out = args.out or tempfile.mkdtemp()
     root = os.path.join(out, "euroc")
     if not os.path.exists(os.path.join(root, "done")):
-        cs.write_euroc_dataset(root, args.frames)
+        cs.write_dataset(root, "euroc", args.frames)
     print("native dataloader:", "native" if native.get_ext("dataloader") is not None
           else "fallback", flush=True)
 

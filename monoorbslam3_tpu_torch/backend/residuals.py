@@ -1,6 +1,7 @@
 """Residual library (counterpart of `monoorbslam3_tpu/backend/residuals.py`):
-the visual reprojection residual, the inertial preintegration residual,
-the bias random walk and the diagonal prior.
+the visual reprojection residual, the inertial preintegration residual
+(and its variant with free gravity direction and scale, with the gravity
+retraction), the bias random walk and the diagonal prior.
 
 State conventions (CameraImuPose, G2oTypes.cpp:10-25): body state R_wb,
 t_wb, v, bg, ba; camera pose R_cw = R_cb R_wb^T, t_cw = t_cb - R_cw t_wb;
@@ -16,10 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.imu import GRAVITY_VALUE
+from ..models.imu import GRAVITY_W as G_I
 from ..utils import lie
-
-G_I = np.array([0.0, 0.0, -GRAVITY_VALUE], np.float32)
 
 
 def gravity(device) -> torch.Tensor:
@@ -172,6 +171,35 @@ def inertial_residual(s1: KfState, s2: KfState, edge: PreintEdge,
     if whiten:
         r = torch.einsum("...ij,...j->...i", edge.L_inv, r)
     return r
+
+
+def inertial_gs_residual(s1: KfState, s2: KfState, edge: PreintEdge,
+                         R_wg: torch.Tensor, log_scale: torch.Tensor,
+                         whiten: bool = True) -> torch.Tensor:
+    """9-D inertial residual with free gravity direction + global scale
+    (EdgeInertialGS, G2oTypes.cpp:71-163). Poses are treated as fixed
+    monocular-gauge poses: translations scale by exp(log_scale), gravity is
+    R_wg @ (0, 0, -G)."""
+    g = torch.einsum("...ij,...j->...i", R_wg, gravity(R_wg.device))
+    scale = torch.exp(log_scale)
+    dR, dV, dP = edge.corrected(s1.bg, s1.ba)
+    Rb1w = s1.R_wb.transpose(-1, -2)
+    dt = edge.dt[..., None]
+    er = lie.log_so3(dR.transpose(-1, -2) @ Rb1w @ s2.R_wb)
+    ev = torch.einsum("...ij,...j->...i", Rb1w, scale * (s2.v - s1.v) - g * dt) - dV
+    ep = torch.einsum("...ij,...j->...i", Rb1w,
+                      scale * (s2.t_wb - s1.t_wb - s1.v * dt) - 0.5 * g * dt * dt) - dP
+    r = torch.cat([er, ev, ep], dim=-1)
+    if whiten:
+        r = torch.einsum("...ij,...j->...i", edge.L_inv, r)
+    return r
+
+
+def gravity_rotation(theta: torch.Tensor, R_wg0: torch.Tensor) -> torch.Tensor:
+    """2-DoF gravity-direction retraction (VertexGravity, G2oTypes.h:74-93):
+    R_wg = R_wg0 Exp([theta_x, theta_y, 0])."""
+    w = torch.cat([theta, torch.zeros_like(theta[..., :1])], dim=-1)
+    return R_wg0 @ lie.exp_so3(w)
 
 
 def bias_walk_residual(s1: KfState, s2: KfState,

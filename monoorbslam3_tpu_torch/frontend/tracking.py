@@ -30,14 +30,27 @@ import torch
 from ..backend.problems import _identity_edge, _pose_optimize_impl, upload_inputs, whiten
 from ..backend.residuals import KfState, gravity
 from ..models.camera import _host_intrinsics, project_np
-from ..models.imu import GRAVITY_VALUE, ImuBuffer
+from ..models.imu import GRAVITY_W as G_W, ImuBuffer
 from ..ops import matching
 from ..ops.match_pallas import projected_match
 from ..ops.twoview import draw_samples, reconstruct_two_views
 from ..utils.fetch import fetch
 from .frame import Frame, make_frame
 
-G_W = np.array([0.0, 0.0, -GRAVITY_VALUE], np.float32)
+
+def ideal_pixels(camera, xy: torch.Tensor):
+    """Keypoints [N, 2] -> (ideal pinhole pixels [N, 2], ray in front [N])
+    for the bootstrap's H/F machinery: the identity for a pinhole (its
+    keypoints are undistorted), the cv::fisheye::undistortPoints analog for
+    KB4, whose stored keypoints stay distorted (Fisheye.cpp:119-139). KB4's
+    rays are unit-depth, so a keypoint past 90 degrees from the axis maps
+    through a negative tan(theta) to the opposite side, as in the JAX
+    package."""
+    c = _host_intrinsics(camera)
+    r = camera.back_project(xy)
+    z = torch.clamp(r[:, 2], min=1e-6)
+    uv = torch.stack([c["fx"] * r[:, 0] / z + c["cx"], c["fy"] * r[:, 1] / z + c["cy"]], -1)
+    return uv, r[:, 2] > 1e-6
 
 
 def _predict_deltas(pre, bg, ba):
@@ -447,20 +460,11 @@ class Tracking:
         idx, _ = matching.match_descriptors(
             d0["desc"], d1["desc"], mask, angles_a=d0["angle"], angles_b=d1["angle"],
             max_dist=matching.TH_LOW, ratio=0.9, use_rotation=True)
-        # every keypoint mapped to IDEAL pinhole pixels for the H/F
-        # machinery (identity for a pinhole: keypoints are undistorted; the
-        # cv::fisheye::undistortPoints analog for KB4, whose stored
-        # keypoints stay distorted), in the same read as the match
+        # every keypoint mapped to ideal pinhole pixels, in the same read
+        # as the match
         c = _host_intrinsics(self.camera)
-
-        def ideal(xy):
-            r = self.camera.back_project(xy)
-            z = torch.clamp(r[:, 2], min=1e-6)
-            uv = torch.stack([c["fx"] * r[:, 0] / z + c["cx"], c["fy"] * r[:, 1] / z + c["cy"]], -1)
-            return uv, r[:, 2] > 1e-6
-
         idx, (u0_all, ok0_all), (u1_all, ok1_all) = self._fetch(
-            (idx, ideal(d0["xy"]), ideal(d1["xy"])))
+            (idx, ideal_pixels(self.camera, d0["xy"]), ideal_pixels(self.camera, d1["xy"])))
         matched = idx >= 0
         n_matches = int(matched.sum())
         # the gate scales with the init frames' feature capacity (the 2x

@@ -146,16 +146,6 @@ def ba_iter_work(n_kf, obs_pt, obs_valid, n_pts, n_edges):
     return bound(n_bytes, [(ops, F32_OPS_PER_S)])
 
 
-def pm1_planes(desc):
-    """[n, 8] int32 words -> [n, 256] bf16 planes, +1 for a 0 bit and -1 for
-    a 1 bit, as the JAX package unpacks them for its +-1 product
-    (`monoorbslam3_tpu/ops/matching.py:hamming_matrix`): 256 - 2 x the
-    distance is their product."""
-    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
-    bits = (desc[:, :, None] >> shifts) & 1
-    return (1 - 2 * bits).reshape(desc.shape[0], 256).to(torch.bfloat16)
-
-
 def _desc(rng, n, dev):
     return torch.as_tensor(rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32),
                            device=dev)
@@ -232,7 +222,7 @@ def run(device=CARD, log=print) -> list:
         if on_card:
             ref = pallas_kernels.hamming_matrix_plain(da, db)
             _same([pallas_kernels.hamming_matrix_cuda(da, db)], [ref], f"K3 {N}x{M}")
-            pa, pb = pm1_planes(da), pm1_planes(db)
+            pa, pb = (pallas_kernels.pm1_planes(d, torch.bfloat16) for d in (da, db))
             if not torch.equal((256 - (pa @ pb.T).float()) / 2, ref.float()):
                 raise RuntimeError("K3's yardstick: the +-1 product is not 256 - 2 x the distance")
             del ref

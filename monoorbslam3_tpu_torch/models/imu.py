@@ -30,6 +30,8 @@ from ..utils import lie
 from ..utils.device import CARD, resolve
 
 GRAVITY_VALUE = 9.80  # reference: Imu.h:15
+# world gravity (z up)
+GRAVITY_W = np.array([0.0, 0.0, -GRAVITY_VALUE], np.float32)
 
 
 class ImuCalib(NamedTuple):

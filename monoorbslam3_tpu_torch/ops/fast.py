@@ -48,6 +48,12 @@ def fast_score_raw(img: torch.Tensor) -> torch.Tensor:
     return torch.maximum(_arc_min_max(diffs), _arc_min_max(-diffs))
 
 
+def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """[H, W] float -> [H, W] corner score, zeroed where <= threshold."""
+    score = fast_score_raw(img)
+    return torch.where(score > threshold, score, torch.zeros_like(score))
+
+
 def subpixel_peak_offsets(score: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                           valid: torch.Tensor):
     """Separable quadratic peak interpolation at integer keypoints: a

@@ -19,6 +19,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..utils.device import constant
 
 
 @lru_cache(maxsize=None)
@@ -28,6 +31,18 @@ def _gaussian_kernel(ksize: int, sigma: float):
     k = np.exp(-0.5 * (x / sigma) ** 2)
     k /= k.sum()
     return k.astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of a single-channel [H, W] image (SAME
+    size, reflect padding): the vertical pass, then the horizontal one."""
+    k = constant(("image.gauss", ksize, sigma), img.device,
+                 lambda: _gaussian_kernel(ksize, sigma))
+    r = ksize // 2
+    x = F.pad(img[None, None], (r, r, r, r), mode="reflect")
+    x = F.conv2d(x, k.reshape(1, 1, ksize, 1))
+    x = F.conv2d(x, k.reshape(1, 1, 1, ksize))
+    return x[0, 0]
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int, scale: float):

@@ -9,8 +9,9 @@ check, and returns (idx, dist) exactly like `match_descriptors`.
 
 `_match_rows` dispatches on the tensors' device: a CUDA tensor launches the
 hand kernel (`csrc/match_rows.cu`); a CPU tensor takes `_match_rows_plain`,
-the JAX `_match_rows_xla` written in torch with an integer popcount. Both
-are exact: idx and dist are bit-identical to the JAX package.
+the JAX `_match_rows_xla` written in torch (its distances are K3's plain
+version, the same exact +-1 product). Both are exact: idx and dist are
+bit-identical to the JAX package.
 """
 
 from __future__ import annotations

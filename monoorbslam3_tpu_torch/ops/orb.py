@@ -82,6 +82,18 @@ def _blur_matrix(ksize: int = 7, sigma: float = 2.0):
     return G
 
 
+def gather_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """[K, PATCH, PATCH] patches of one image [H, W] centered at integer
+    keypoints xy [K, 2] (x, y) at this image's scale, from the image padded
+    by HALF zeros. Keypoints lie >= HALF from the border (the FAST margin);
+    the extractor itself gathers from the packed atlas (K1)."""
+    padded = F.pad(img, (HALF, HALF, HALF, HALF))
+    x = xy[:, 0].to(torch.int64)
+    y = xy[:, 1].to(torch.int64)
+    r = torch.arange(PATCH, device=img.device)
+    return padded[(y[:, None] + r)[:, :, None], (x[:, None] + r)[:, None, :]]
+
+
 def ic_angles(patches_raw: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch (reference IC_Angle,
     ORBExtractor.cpp:18-48). [K, PATCH, PATCH] -> [K] radians."""

@@ -4,8 +4,8 @@ the ORB descriptor sampler (counterparts of `hamming_matrix_pallas` and
 
 K3: [N, 8] x [M, 8] descriptor words -> [N, M] int32 Hamming distances.
 Descriptors are the int32 view of the uint32 words. A CUDA tensor launches
-the hand kernel (`csrc/hamming.cu`); a CPU tensor takes the plain XOR +
-SWAR popcount. Integer arithmetic: both are exact.
+the hand kernel (`csrc/hamming.cu`); a CPU tensor takes the plain version,
+the +-1 product of the JAX package's XLA path. Both are exact.
 
 K1: K windows of 48x48 are copied out of the packed pyramid atlas at
 dynamic top-left corners. A CUDA tensor launches the hand kernel
@@ -34,10 +34,24 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def pm1_planes(desc: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[n, 8] int32 words -> [n, 256] bit planes of `dtype`, +1 for a 0 bit
+    and -1 for a 1 bit, as the JAX package unpacks them for its +-1 product
+    (`monoorbslam3_tpu/ops/matching.py:hamming_matrix`): 256 - 2 x the
+    distance is their product."""
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
+    bits = (desc[:, :, None] >> shifts) & 1
+    return (1 - 2 * bits).reshape(desc.shape[0], 256).to(dtype)
+
+
 def hamming_matrix_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """XOR + SWAR popcount over the [N, M, 8] broadcast."""
-    x = torch.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
-    return popcount32(x).sum(dim=-1, dtype=torch.int32)
+    """The JAX package's XLA formulation (`ops/matching.py:hamming_matrix`):
+    for +-1 bit planes A, B the distance is (256 - A.B) / 2. The products
+    are +-1 and every partial sum an integer of at most 256, so the float32
+    product is exact in any summation order; one [N, 256] x [256, M] product
+    instead of an [N, M, 8] broadcast of popcounts."""
+    dot = pm1_planes(desc_a) @ pm1_planes(desc_b).T
+    return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
 def hamming_matrix_cuda(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -71,6 +85,13 @@ def hamming_matrix_pallas(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.T
     if desc_a.device.type != "cpu":
         raise ValueError(f"hamming_matrix: unsupported device {desc_a.device}")
     return hamming_matrix_plain(desc_a, desc_b)
+
+
+def hamming_matrix_best(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """The Hamming matrix by the best route of the device, as the JAX
+    package's dispatch between its kernel and its XLA product: K3 on a
+    CUDA tensor, the plain version on the CPU (both exact)."""
+    return hamming_matrix_pallas(desc_a, desc_b)
 
 
 def _check_inputs(img, ys, xs):

@@ -14,6 +14,11 @@ carried over, map points seen by the frame with pixel noise and outliers.
    (LM decisions may flip on rounding, so the iterates are not compared).
 3. `_local_track_kernel(use_inertial=True)` on seeded candidates and
    features: the integer outputs identical, the state within 1e-3.
+
+The cameras: a radtan pinhole, the TUM-VI fisheye, and KITTI's
+(settings/kitti.yaml: 1392x512, five radtan coefficients, k1 -0.373; its
+points spread over its narrower field of view, 1,536 features in the
+local stage).
 """
 
 from types import SimpleNamespace
@@ -57,11 +62,16 @@ CAMS = {
                     cy=256.8974428996504, width=512, height=512,
                     dist=[0.0034823894022493434, 0.0007150348452162257,
                           -0.0020532361418706202, 0.00020293673591811182]),
+    # settings/kitti.yaml: five radtan coefficients, k1 -0.373
+    "kitti": dict(fx=984.2439, fy=980.8141, cx=690.0, cy=233.1966, width=1392, height=512,
+                  dist=[-0.3728755, 0.2037299, 0.002219027, 0.001383707, -0.07233722]),
 }
+# the local stage's features a frame: KITTI's 1,536 (settings/kitti.yaml)
+N_FEAT = {"pinhole": 384, "fisheye": 384, "kitti": 1536}
 
 
 def _cams(kind):
-    if kind == "pinhole":
+    if kind in ("pinhole", "kitti"):
         return (JPinhole.create(**CAMS[kind]), TPinhole.create(**CAMS[kind], device="cpu"))
     return JFisheye.create(**CAMS[kind]), TFisheye.create(**CAMS[kind], device="cpu")
 
@@ -91,6 +101,11 @@ def scene():
     ray = np.concatenate([rng.uniform(-0.9, 0.9, (N_PTS, 2)), np.ones((N_PTS, 1))], 1)
     pc = ray * rng.uniform(3.0, 9.0, (N_PTS, 1))
     pts = (pc @ R_wc.T + c_w).astype(np.float32)
+    # for KITTI's narrower field of view (1392x512 at fx 984), its own spread
+    rng_k = np.random.default_rng(22)
+    ray_k = np.concatenate([rng_k.uniform(-0.6, 0.6, (N_PTS, 1)),
+                            rng_k.uniform(-0.2, 0.22, (N_PTS, 1)), np.ones((N_PTS, 1))], 1)
+    pts_k = ((ray_k * rng_k.uniform(3.0, 9.0, (N_PTS, 1))) @ R_wc.T + c_w).astype(np.float32)
     # a perturbed start: 0.5 deg, 3 cm, 0.1 m/s, small bias offsets
     w = np.array([0.005, -0.006, 0.004])
     K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
@@ -98,8 +113,8 @@ def scene():
     state0 = ((U @ Vt).astype(np.float32), truth[1] + np.float32([0.02, -0.03, 0.01]),
               truth[2] + np.float32([0.1, -0.05, 0.02]), truth[3] + np.float32(1e-3),
               truth[4] - np.float32(5e-3))
-    return dict(traj=traj, pre=pre, edge=edge, last=last, truth=truth, pts=pts, state0=state0,
-                rng=rng)
+    return dict(traj=traj, pre=pre, edge=edge, last=last, truth=truth, state0=state0, rng=rng,
+                pts={"pinhole": pts, "fisheye": pts, "kitti": pts_k})
 
 
 def test_predict_state_inertial_matches_jax(scene):
@@ -136,7 +151,7 @@ def _observations(scene, kind):
     truth = scene["truth"]
     R_cw = R_CB @ truth[0].T
     t_cw = T_CB - R_cw @ truth[1]
-    pc = scene["pts"] @ R_cw.T + t_cw
+    pc = scene["pts"][kind] @ R_cw.T + t_cw
     uv = np.asarray(jcam.project(jnp.asarray(pc))) + rng.normal(0, 0.5, (N_PTS, 2))
     out = rng.uniform(size=N_PTS) < 0.08
     uv[out] += rng.uniform(-40, 40, (out.sum(), 2))
@@ -220,11 +235,12 @@ def _rot_deg(Ra, Rb):
 
 @pytest.mark.parametrize("kind,use_inertial,use_prior", [
     ("pinhole", False, False), ("pinhole", True, False), ("pinhole", False, True),
-    ("pinhole", True, True), ("fisheye", True, False)])
+    ("pinhole", True, True), ("fisheye", True, False), ("kitti", False, False),
+    ("kitti", True, True)])
 def test_pose_optimize_matches_jax(scene, kind, use_inertial, use_prior):
     jcam, tcam, uv, inv_s2, valid = _observations(scene, kind)
     ref, inv_sigma = _prior(scene)
-    pts, state0 = scene["pts"], scene["state0"]
+    pts, state0 = scene["pts"][kind], scene["state0"]
     j_state, j_inl = jproblems._pose_optimize_impl(
         jres.KfState(*map(jnp.asarray, state0)), jnp.asarray(pts), jnp.asarray(uv),
         jnp.asarray(inv_s2), jnp.asarray(valid), jcam, jnp.asarray(R_CB), jnp.asarray(T_CB),
@@ -258,12 +274,12 @@ def _local_scene(scene, kind):
     distractors."""
     jcam, tcam, uv, inv_s2, valid = _observations(scene, kind)
     rng = np.random.default_rng(31)
-    P, N = 512, 384
+    P, N = 512, N_FEAT[kind]
     desc = rng.integers(0, 2 ** 32, (N_PTS, 8), dtype=np.uint32)
     cand_xyz = np.zeros((P, 3), np.float32)
     cand_desc = np.zeros((P, 8), np.uint32)
     cand_valid = np.zeros(P, bool)
-    cand_xyz[:N_PTS], cand_desc[:N_PTS], cand_valid[:N_PTS] = scene["pts"], desc, True
+    cand_xyz[:N_PTS], cand_desc[:N_PTS], cand_valid[:N_PTS] = scene["pts"][kind], desc, True
     truth = scene["truth"]
     c_w = truth[0] @ T_BC + truth[1]
     normal = cand_xyz - c_w
@@ -291,7 +307,7 @@ _LOCAL_ORDER = ("cand_xyz", "cand_desc", "cand_valid", "cand_normal", "cand_use_
                 "coarse_valid", "fr_xy", "fr_desc", "fr_valid", "fr_sigma2")
 
 
-@pytest.mark.parametrize("kind", ["pinhole", "fisheye"])
+@pytest.mark.parametrize("kind", ["pinhole", "fisheye", "kitti"])
 def test_local_track_kernel_inertial_matches_jax(scene, kind):
     jcam, tcam, kw = _local_scene(scene, kind)
     state0 = scene["state0"]
