@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the hand kernels from `monoorbslam3_tpu_torch/csrc/` and drives the
-port's fourteen paths, each with the kernel launch counts set to 0 just
+port's fifteen paths, each with the kernel launch counts set to 0 just
 before it and read just after:
 
 1. tracking: the per-frame visual tracking path (ORB extraction ->
@@ -111,21 +111,38 @@ before it and read just after:
    settings/tum_vi.yaml), with the reference-scale vocabulary, the exports
    and the checkpoint, every tracker and mapper knob its default (K1-K4,
    both K4 routes), held to the JAX package's `main` on the same files
-   (`experiments/port_profiles_jax.py`) by `profiles_checks`.
+   (`experiments/port_profiles_jax.py`) by `profiles_checks`;
+15. the last four profiles, the same way over the datasets `write_dataset`
+   renders from the script's start: the phone (settings/phone.yaml,
+   1280x720 at 30 fps, IMU at 100 Hz, its rig turned onto the wall-facing
+   rig of settings/synthetic.yaml with its IMU rows in its own frame,
+   `phone_body`; 180 frames of the circle, run with --realtime:
+   `System.warmup`, then 0 kernel builds, and the frames over the 33 ms
+   budget counted), KAIST-VIO (640x480 at 30 fps, 180 frames of the
+   corridor), NTU-VIRAL (752x480 at 10 fps with IMU at 385 Hz, 90 frames
+   of the corridor) and rectified TUM-VI (the 512x512 pinhole, 160 frames
+   of the circle in the TUM-VI layout), each at 1,024 features, each
+   through the EuRoC or TUM-VI layout its settings name (the card's host
+   has no cv2 for the phone's video), held to the JAX package's `main` on
+   the same files by `profiles_checks` and `profile_shape_checks` (the
+   camera, the extractor's atlas and K2's rows at each profile's own
+   width, height and feature count).
 
 The frames of paths 1, 2 and 8 (the same EuRoC-size frames) are rendered
 ahead by a child process (`_Prefetched`, `_Drained`), as are the frames and files
-of paths 9, 10, 12, 13 and 14, each by children of their own. Paths 13 and
-14 run side by side after path 12, in three child processes (`Lane`: each
-battery world in one, both profiles in the third), each with its own
-launch counts; their results come back pickled, and the kernel checks run
-here.
+of paths 9, 10, 12, 13, 14 and 15, each by children of their own. Paths
+9 and 13-15 run side by side after path 12, in six child processes
+(`Lane`: the system world with its resume and async runs in one, each
+battery world in one, path 14's two profiles in another, path 15's four
+two by two in the last two, VIO_LANES), each with its own launch counts;
+their results come back pickled, and the kernel checks run here.
 
 Then it holds each kernel against its plain PyTorch version on the inputs
 its path gave it (K2 on all eight launches of the last frame, and on
 seeded ties across column chunks; K1, K2 and K3 at KITTI's 1,536
-features; K4 on every reduced system both BA paths solved, and on the
-profiles' windows and polishes), and prints local-BA iterations/s and the polish solve's
+features, K1 on the phone's 1280x720 atlas, K1 and K2 at each of path 15's
+profiles' shapes; K4 on every reduced system both BA paths solved, and on
+the profiles' windows and polishes), and prints local-BA iterations/s and the polish solve's
 wall time. K4 is also held to float64 on seeded SPD systems up to
 D = 1440; its large-D route must be a cooperative grid of more than one
 block and give the same bits twice; and both of its routes must return
@@ -165,7 +182,7 @@ of `track_map_checks`, or the system world one of `system_world_checks`,
 with the compiler's output otherwise), or the sharded BA one of
 `sharded_ba_checks`, or the measuring entry points one of
 `measure_checks`, or the battery one of `battery_checks`, or the profiles
-one of `profiles_checks`. Prints, before the last line, the
+one of `profiles_checks` or `profile_shape_checks`. Prints, before the last line, the
 card's name and power limit and one JSON object with each kernel's
 launches, error and times.
 """
@@ -2021,6 +2038,45 @@ def system_resume_checks(records):
     return fails
 
 
+def system_lane(device, out_dir, go):
+    """Path 9 in a `Lane`: once the file `go` exists, `system_world` on
+    `device` with the arguments of its kernels' last launches kept for the
+    kernel checks (K2's last eight, a frame; K3's last 4; K1's last; K4's
+    last 8 cluster-route systems and last large-D one; the last
+    `projected_match`, the node-gated reference-keyframe match), then the
+    resume and the async run. Returns dict(records, steps, summary,
+    seconds, resume, resume_s, async_records, async_steps, async_summary,
+    async_s, k1, k2, k3, k4, k4_l2, ref: (args, kwargs))."""
+    import torch
+
+    from monoorbslam3_tpu_torch.frontend import tracking
+    from monoorbslam3_tpu_torch.ops import chol_pallas, match_pallas, pallas_kernels
+
+    _wait_file(go)
+    t0 = time.perf_counter()
+    with _Capture(match_pallas, "_match_rows_cuda") as k2, \
+            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as k3, \
+            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as k1, \
+            _Capture(chol_pallas, "chol_solve_cluster", maxlen=8) as k4, \
+            _Capture(chol_pallas, "chol_solve_l2", maxlen=1) as k4l2, \
+            _Capture(tracking, "projected_match", maxlen=1) as ref:
+        records, steps, summary, stream, ckpt = system_world(device, out_dir,
+                                                             log=lambda line: None)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(records=records, steps=steps, summary=summary, seconds=time.perf_counter() - t0,
+               k1=list(k1.calls), k2=list(k2.calls), k3=list(k3.calls), k4=list(k4.calls),
+               k4_l2=list(k4l2.calls), ref=(ref.calls[-1], ref.kwargs[-1]))
+    t0 = time.perf_counter()
+    out["resume"] = system_resume(device, ckpt, stream, log=lambda line: None)
+    out["resume_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["async_records"], out["async_steps"], out["async_summary"] = system_async(
+        device, out_dir, log=lambda line: None)
+    out["async_s"] = time.perf_counter() - t0
+    return out
+
+
 def system_async_checks(sa):
     """The async run's gates: no LOST frame, the inertial init, the
     keyframe ATE within the world's bound, the queue drained at shutdown."""
@@ -2055,31 +2111,87 @@ DATASET_GT_NAME = "gt.txt"
 DATASET_EXPORTS = {"--velocity-out": "velocity.txt", "--map-out": "map.pcd",
                    "--depth-out": "depth.txt", "--save-state": "state.npz"}
 # the on-disk layouts `runners.datasets` reads, by kind: (times file, image
-# folder, image name pattern, IMU file, the PNGs' bit depth). TUM-VI's
-# 512_16 sequences ship 16-bit PNGs (the 8-bit value x 257), which the
-# native decoder's 16-bit branch reads back to the same 8-bit values
-DATASET_LAYOUTS = {"euroc": ("cam0/times.txt", "cam0/data", "%08d.png", "imu.txt", 8),
+# folder, image name pattern, IMU file). The phone's (phoneDemo.cpp) is one
+# video, `video.mp4` beside times.txt and imu.txt, which cv2 writes and
+# decodes; the card's host has no cv2, so the card runs the phone's frames
+# from the EuRoC layout (runners.datasets.main takes any settings file with
+# any kind)
+DATASET_LAYOUTS = {"euroc": ("cam0/times.txt", "cam0/data", "%08d.png", "imu.txt"),
                    "kitti": ("image_00/times.txt", "image_00/data", "%010d.png",
-                             "oxts/imu.txt", 8),
-                   "tumvi": ("cam0/times.txt", "cam0/data", "%08d.png", "imu.txt", 16)}
-# the profiles the writer renders, by kind: the settings file under
-# settings/ and the synthetic world it is rendered in (runners/synth.py's
-# spec; None: the track map's stream, above) and the frame count; no
-# profile has a `System:` block, so every tracker and mapper knob keeps its
-# default. Path 14 (`profiles`): KITTI
-# raw (settings/kitti.yaml as it stands: 1392x512, radtan with k1 -0.373
-# and a fifth coefficient, 1,536 features, 10 fps, IMU at 100 Hz, the
-# lever arm (1.08, -0.32, 0.72) m; its Rbc is the forward profile's, for
-# which the corridor world is built) over 20 s of the corridor, 160 m at
-# 8 m/s; TUM-VI (settings/tum_vi.yaml as it stands: 512x512 KB4 fisheye,
-# 1,024 features, 20 fps, IMU at 200 Hz; its optical axis, -y body, faces
-# the circle world's wall) over 20 s of the circle
+                             "oxts/imu.txt"),
+                   "tumvi": ("cam0/times.txt", "cam0/data", "%08d.png", "imu.txt"),
+                   "phone": ("times.txt", None, "video.mp4", "imu.txt")}
+# the profiles the writer renders, by name: the settings file under
+# settings/, the layout kind it is written in (and run as), the synthetic
+# world it is rendered in (runners/synth.py's spec; None: the track map's
+# stream, above), the frame count and the PNGs' bit depth (TUM-VI's 512_16
+# sequences ship 16-bit PNGs, the 8-bit value x 257, which the native
+# decoder's 16-bit branch reads back to the same 8-bit values). No profile
+# has a `System:` block, so every tracker and mapper knob keeps its
+# default. Path 14 (`profiles`): KITTI raw (settings/kitti.yaml as it
+# stands: 1392x512, radtan with k1 -0.373 and a fifth coefficient, 1,536
+# features, 10 fps, IMU at 100 Hz, the lever arm (1.08, -0.32, 0.72) m; its
+# Rbc is the forward profile's, for which the corridor world is built) over
+# 20 s of the corridor, 160 m at 8 m/s; TUM-VI (settings/tum_vi.yaml as it
+# stands: 512x512 KB4 fisheye, 1,024 features, 20 fps, IMU at 200 Hz; its
+# optical axis, -y body, faces the circle world's wall) over 20 s of the
+# circle. Path 15 (`profiles` in VIO_LANES): the phone (settings/phone.yaml:
+# 1280x720 at 30 fps, IMU at 100 Hz, run with --realtime) over the circle
+# in a body frame of its own (`phone_body`); KAIST-VIO (640x480 at 30 fps,
+# a forward rig with the lever arm (0.05, 0, 0)) and NTU-VIRAL (752x480 at
+# 10 fps, IMU at 385 Hz, the camera rolled 180 deg about its axis) down the
+# corridor at 8 m/s; rectified TUM-VI (a ~107 deg pinhole with zero radtan
+# coefficients on TUM-VI's rig, 8-bit PNGs in TUM-VI's layout) over the
+# circle. Each of these streams is as long as the JAX package's runs over
+# seeds 0-3 need to reach imu_state 2, within the script's time (PERF.md
+# section 4)
 DATASET_PROFILES = {
-    "euroc": dict(settings=EUROC_PROFILE, spec=None, frames=DATASET_FRAMES),
-    "kitti": dict(settings="kitti.yaml", spec="corridor:t_end=20,fps=10", frames=200),
-    "tumvi": dict(settings="tum_vi.yaml", spec="circle:t_end=20,fps=20", frames=400),
+    "euroc": dict(settings=EUROC_PROFILE, layout="euroc", spec=None, frames=DATASET_FRAMES,
+                  depth=8),
+    "kitti": dict(settings="kitti.yaml", layout="kitti", spec="corridor:t_end=20,fps=10",
+                  frames=200, depth=8),
+    "tumvi": dict(settings="tum_vi.yaml", layout="tumvi", spec="circle:t_end=20,fps=20",
+                  frames=400, depth=16),
+    "phone": dict(settings="phone.yaml", layout="euroc", spec="circle:t_end=6,fps=30",
+                  frames=180, depth=8, body="synthetic.yaml", realtime=True),
+    "kaist": dict(settings="kaist_vio.yaml", layout="euroc", spec="corridor:t_end=6,fps=30",
+                  frames=180, depth=8),
+    "ntu": dict(settings="ntu_viral.yaml", layout="euroc", spec="corridor:t_end=9,fps=10",
+                frames=90, depth=8),
+    "recttum": dict(settings="rect_tum.yaml", layout="tumvi", spec="circle:t_end=8,fps=20",
+                    frames=160, depth=8),
 }
 PROFILE_KINDS = ("kitti", "tumvi")
+# path 15's profiles, two lanes of two: NTU-VIRAL runs first in its lane
+# while the phone's 180 frames at 1280x720 (the longest render, ~2.2 s a
+# frame on one core of the card's host) are still being written
+VIO_LANES = (("ntu", "phone"), ("kaist", "recttum"))
+VIO_PROFILES = tuple(p for lane in VIO_LANES for p in lane)
+
+
+def _settings_rbc(name):
+    """The IMU's Rbc of settings/<name>, float64 [3, 3]."""
+    import yaml
+
+    s = yaml.safe_load((SETTINGS / name).read_text())
+    return np.asarray(s["IMU"]["Rbc"], np.float64).reshape(3, 3)
+
+
+def phone_body(profile="phone"):
+    """R_BP of a profile rendered in a body frame of its own (its `body`
+    entry), else None: the rotation from the profile's IMU frame P to the
+    trajectory's body B, R_bc(body's settings) @ R_bc(profile)^T, which
+    puts the camera on the body profile's rig (the phone's Rbc, its optical
+    axis on -z, would face the ground or the circle's axis in
+    runners/synth.py's worlds, where body z is up). The camera renders at
+    R_BP @ R_bc(profile) with the profile's t_bc (the phone's is 0); each
+    IMU row is written in P (gyro_P = R_BP^T gyro_B, acc_P = R_BP^T acc_B),
+    so gravity lies on P's x axis, as for a phone filming in landscape; the
+    ground truth stays the camera's trajectory."""
+    body = DATASET_PROFILES[profile].get("body")
+    if body is None:
+        return None
+    return _settings_rbc(body) @ _settings_rbc(DATASET_PROFILES[profile]["settings"]).T
 
 
 def png_gray(img, depth=8):
@@ -2117,14 +2229,14 @@ def png_gray_pixels(data):
     return rows.copy() if depth == 8 else rows.copy().view(">u2").astype(np.uint16)
 
 
-def dataset_settings_text(kind="euroc"):
-    """The settings file of a `kind` dataset: its profile's file as it
+def dataset_settings_text(profile="euroc"):
+    """The settings file of a `profile` dataset: its settings file as it
     stands, with the rig's extrinsics on the EuRoC profile (see
     DATASET_FRAMES)."""
     import yaml
 
-    text = (SETTINGS / DATASET_PROFILES[kind]["settings"]).read_text()
-    if kind != "euroc":
+    text = (SETTINGS / DATASET_PROFILES[profile]["settings"]).read_text()
+    if profile != "euroc":
         return text
     s = yaml.safe_load(text)
     s["IMU"]["Rbc"] = [float(x) for x in np.asarray(R_BC).ravel()]
@@ -2132,18 +2244,27 @@ def dataset_settings_text(kind="euroc"):
     return yaml.safe_dump(s, sort_keys=False)
 
 
-def _dataset_stream(kind, n_frames):
-    """(rows (t, image, imu) of the first n_frames frames of a `kind`
-    dataset, its trajectory, R_bc, t_bc): the track map's stream on the
-    rig's extrinsics for EuRoC, else `runners.synth.SyntheticDataset` of
-    the profile's spec on a CPU camera and calibration built from the
-    profile's settings, at its frame rate (the spec's), IMU rate and noise
-    densities."""
+def profile_fps(profile):
+    """The frame rate of a profile's stream (its spec's)."""
+    from monoorbslam3_tpu_torch.runners.synth import parse_spec
+
+    spec = DATASET_PROFILES[profile]["spec"]
+    return FPS if spec is None else parse_spec(spec)[1].get("fps", FPS)
+
+
+def _dataset_stream(profile, n_frames):
+    """(rows (t, image, imu) of the first n_frames frames of a `profile`
+    dataset, its trajectory, the R_bc and t_bc it renders at): the track
+    map's stream on the rig's extrinsics for EuRoC, else
+    `runners.synth.SyntheticDataset` of the profile's spec on a CPU camera
+    and calibration built from the profile's settings, at its frame rate
+    (the spec's), IMU rate and noise densities; a profile with a body frame
+    of its own renders and writes its IMU rows as `phone_body` says."""
     from monoorbslam3_tpu_torch import config
     from monoorbslam3_tpu_torch.runners.synth import SyntheticDataset
     from monoorbslam3_tpu_torch.sim import ImageWorld
 
-    prof = DATASET_PROFILES[kind]
+    prof = DATASET_PROFILES[profile]
     if prof["spec"] is None:
         world = ImageWorld()
         rows = ((t, img, imu) for _, t, img, imu in
@@ -2154,53 +2275,104 @@ def _dataset_stream(kind, n_frames):
     ds = SyntheticDataset(prof["spec"], config.build_camera(s, "cpu"),
                           config.build_imu_calib(s, "cpu"), imu_freq=float(imu["Frequency"]),
                           noise_gyro=float(imu["NoiseGyro"]), noise_acc=float(imu["NoiseAcc"]))
-    return itertools.islice(ds.frames(), n_frames), ds.traj, ds.R_bc, ds.t_bc
+    R_BP = phone_body(profile)
+    if R_BP is not None:
+        ds.R_bc = R_BP @ _settings_rbc(prof["settings"])
+    # where a frame period is no whole number of IMU periods, the
+    # generator's last sample of each frame (measured at its interval's
+    # start, as every sample) runs past the frame's time: its row is written
+    # at the frame's time, so that a frame's rows span its period exactly
+    # as the loaders and the tracker (a row's dt: its time less the one
+    # before) read them
+    trim = not (float(imu["Frequency"]) / profile_fps(profile)).is_integer()
+    if R_BP is None and not trim:
+        return itertools.islice(ds.frames(), n_frames), ds.traj, ds.R_bc, ds.t_bc
+
+    def rows():
+        for t, img, m in itertools.islice(ds.frames(), n_frames):
+            if m is not None:
+                m = m.copy()
+                if trim:
+                    m[:, 0] = np.minimum(m[:, 0], t)
+                if R_BP is not None:  # (gyro, acc) rows: each v_P = R_BP^T v_B
+                    m[:, 1:4] = m[:, 1:4] @ R_BP
+                    m[:, 4:7] = m[:, 4:7] @ R_BP
+            yield t, img, m
+
+    return rows(), ds.traj, ds.R_bc, ds.t_bc
 
 
-def write_dataset(root, kind="euroc", n_frames=None):
+def _write_video(path, frames_u8, fps):
+    """8-bit gray frames into an mp4v video through cv2, as BGR (the
+    layout phoneDemo.cpp reads)."""
+    import cv2
+
+    h, w = frames_u8[0].shape
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    try:
+        for u8 in frames_u8:
+            writer.write(cv2.cvtColor(u8, cv2.COLOR_GRAY2BGR))
+    finally:
+        writer.release()
+
+
+def write_dataset(root, profile="euroc", n_frames=None, layout=None):
     """Renders the first n_frames frames (the profile's count by default)
-    of a `kind` dataset (DATASET_PROFILES) with the port's renderer on the
-    CPU into `root` in the kind's layout (DATASET_LAYOUTS), with
-    DATASET_SETTINGS_NAME and the ground truth (the camera's TUM trajectory
-    at the frame times) beside them. The images are the rendered floats
-    clipped and cast to uint8."""
+    of a `profile` dataset (DATASET_PROFILES) with the port's renderer on
+    the CPU into `root` in its layout (DATASET_LAYOUTS; `layout` names
+    another, "phone" for the video), with DATASET_SETTINGS_NAME and the
+    ground truth (the camera's TUM trajectory at the frame times) beside
+    them. The images are the rendered floats clipped and cast to uint8."""
     import torch
 
     from monoorbslam3_tpu_torch.utils import lie
 
-    n_frames = DATASET_PROFILES[kind]["frames"] if n_frames is None else n_frames
-    times_rel, image_rel, pattern, imu_rel, depth = DATASET_LAYOUTS[kind]
+    prof = DATASET_PROFILES[profile]
+    n_frames = prof["frames"] if n_frames is None else n_frames
+    times_rel, image_rel, pattern, imu_rel = DATASET_LAYOUTS[layout or prof["layout"]]
     root = Path(root)
     for rel in (times_rel, imu_rel):
         (root / rel).parent.mkdir(parents=True, exist_ok=True)
-    (root / image_rel).mkdir(parents=True, exist_ok=True)
-    (root / DATASET_SETTINGS_NAME).write_text(dataset_settings_text(kind))
-    rows, traj, R_bc, t_bc = _dataset_stream(kind, n_frames)
+    if image_rel is not None:
+        (root / image_rel).mkdir(parents=True, exist_ok=True)
+    (root / DATASET_SETTINGS_NAME).write_text(dataset_settings_text(profile))
+    rows, traj, R_bc, t_bc = _dataset_stream(profile, n_frames)
+    # frame times at 6 decimals where the frame period is exact there (10
+    # and 20 fps), else at the IMU rows' 9: a 30 fps time rounded down to 6
+    # decimals would fall before the IMU row of the same instant, and the
+    # loaders would hand that row to the next frame
+    digits = 6 if (1e6 / profile_fps(profile)).is_integer() else 9
+    video = []
     with open(root / times_rel, "w") as ft, open(root / imu_rel, "w") as fi, \
             open(root / DATASET_GT_NAME, "w") as fg:
         for i, (t, img, imu) in enumerate(rows):
             u8 = np.clip(np.asarray(img), 0, 255).astype(np.uint8)
-            (root / image_rel / (pattern % i)).write_bytes(png_gray(u8, depth))
-            ft.write(f"{t:.6f}\n")
+            if image_rel is None:
+                video.append(u8)
+            else:
+                (root / image_rel / (pattern % i)).write_bytes(png_gray(u8, prof["depth"]))
+            ft.write(f"{t:.{digits}f}\n")
             for row in imu if imu is not None else ():
                 fi.write(" ".join(f"{x:.9f}" for x in row) + "\n")
             R_wb = traj.R_wb(t)
             R_wc = R_wb @ R_bc
             t_wc = R_wb @ t_bc + traj.pos(t)
             q = lie.rot_to_quat(torch.as_tensor(np.asarray(R_wc, np.float32))).numpy()
-            fg.write(f"{t:.6f} {t_wc[0]:.7f} {t_wc[1]:.7f} {t_wc[2]:.7f} "
+            fg.write(f"{t:.{digits}f} {t_wc[0]:.7f} {t_wc[1]:.7f} {t_wc[2]:.7f} "
                      f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+    if image_rel is None:
+        _write_video(root / pattern, video, float(profile_fps(profile)))
     (root / "done").write_text(str(n_frames))
 
 
-def dataset_digest(root, kind):
+def dataset_digest(root, profile):
     """The sha256 over a written dataset's files that the runners read (the
     settings, times, IMU rows, ground truth and every PNG, in name order),
     and the sha256 of each PNG by name: two renderers' datasets compare
     by it."""
     import hashlib
 
-    times_rel, image_rel, _, imu_rel, _ = DATASET_LAYOUTS[kind]
+    times_rel, image_rel, _, imu_rel = DATASET_LAYOUTS[DATASET_PROFILES[profile]["layout"]]
     root = Path(root)
     total, pngs = hashlib.sha256(), {}
     for rel in (DATASET_SETTINGS_NAME, times_rel, imu_rel, DATASET_GT_NAME):
@@ -2222,14 +2394,14 @@ sys.path.insert(0, {root!r})
 import torch
 torch.set_num_threads(1)
 import chip_smoke
-chip_smoke.write_dataset({out!r}, {kind!r}, {n!r})
+chip_smoke.write_dataset({out!r}, {profile!r}, {n!r})
 with open(os.path.join({out!r}, chip_smoke.DatasetWriter.SECONDS_NAME), "w") as f:
     f.write(str(time.perf_counter() - t0))
 """
 
 
 class DatasetWriter:
-    """`write_dataset(out, kind, n_frames)` in a child process, started at
+    """`write_dataset(out, profile, n_frames)` in a child process, started at
     once so that the rendering (host numpy, ~0.4 s a 752x480 frame)
     overlaps the caller's other work; `wait()` returns the dataset's root,
     or raises if the child failed, and sets `seconds`, the child's own
@@ -2237,10 +2409,10 @@ class DatasetWriter:
 
     SECONDS_NAME = "written_s.txt"
 
-    def __init__(self, out, kind="euroc", n_frames=None):
+    def __init__(self, out, profile="euroc", n_frames=None):
         self.out = str(out)
         code = _DATASET_CHILD.format(root=str(Path(__file__).resolve().parent), out=self.out,
-                                     kind=kind, n=n_frames, nice=_CHILD_NICE)
+                                     profile=profile, n=n_frames, nice=_CHILD_NICE)
         self.proc = subprocess.Popen([sys.executable, "-c", code], env=_CHILD_ENV)
         self.seconds = None
 
@@ -2280,19 +2452,22 @@ JAX_DATASET_CLI = dict(n_frames=100, ok_frames=99, ok_ratio=0.99, n_lost=0, boot
 DC_MIN_PCD_POINTS = 100
 
 
-def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
+def dataset_cli(device, root, out_dir, profile="euroc", viewer=True, log=print):
     """The dataset CLI on `device`: `runners.datasets.main([kind,
     root/settings.yaml, root, traj, "--vocab", settings/DATASET_VOCAB,
     the three exports, "--save-state", ..., "--viewer-dir", ...,
-    "--device", device])` over the dataset `write_dataset` wrote into
-    `root`, the viewer only if `viewer` and where matplotlib imports (else
-    the line says why not). The System that `main` builds is metered as the
-    system world's (`config.build_system` wrapped: `FrameMeter`,
-    `MapperMeter`, syncs per thread by `SyncLedger`, SYSTEM_WORLD_REGIONS;
-    each frame's fetch allowance, BATTERY_FRAME_FETCHES and the
-    BATTERY_STAGE_FETCHES of the stages it ran; the keyframes each full
-    polish holds), and the launch and build counts are set to 0 just before
-    `main` streams. After it: the native loader's branch (the path fails
+    "--device", device])` over the `profile` dataset `write_dataset` wrote
+    into `root` (kind: the profile's layout), with "--realtime" where the
+    profile says so, the viewer only if `viewer` and where matplotlib
+    imports (else the line says why not). The System that `main` builds
+    is metered as the system world's (`config.build_system` wrapped:
+    `FrameMeter`, `MapperMeter`, syncs per thread by `SyncLedger`,
+    SYSTEM_WORLD_REGIONS; each frame's fetch allowance,
+    BATTERY_FRAME_FETCHES and the BATTERY_STAGE_FETCHES of the stages it
+    ran; the keyframes each full polish holds), and the launch and build
+    counts are set to 0 just before `main` streams (with --realtime: when
+    System.warmup has returned; the frames over the frame period's budget
+    are counted). After it: the native loader's branch (the path fails
     with the compiler's output if the loader did not build), the consumer's
     wait on the prefetcher and a direct decode time a frame, the keyframe
     ATE of the exported trajectory (`evaluate_sequences`), the exports
@@ -2313,20 +2488,21 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
     from monoorbslam3_tpu_torch.runners import datasets
 
     root, out_dir = Path(root), Path(out_dir)
+    kind, realtime = DATASET_PROFILES[profile]["layout"], DATASET_PROFILES[profile].get("realtime")
     branch = native.branch("dataloader")
     if branch != "native":
         raise RuntimeError(f"{kind} dataset CLI: the native dataset loader did not build:\n"
                            + native.build_errors.get("dataloader", "MONOSLAM_NO_NATIVE is set"))
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    viewer_dir = out_dir / f"{kind}_viewer"
+    viewer_dir = out_dir / f"{profile}_viewer"
     viewer_note = None
     if not viewer:
         viewer_dir, viewer_note = None, "not asked for"
     elif importlib.util.find_spec("matplotlib") is None:
         viewer_dir, viewer_note = None, "matplotlib does not import on this host"
     ledger = SyncLedger(on_card)
-    built, loaded = {}, {}
+    built, loaded = {}, {"warmup_s": None}
     allowance = collections.Counter()  # frame -> the fetches of the stages it ran
     polishes = []
     loader_name = f"{kind}_dataset"
@@ -2340,6 +2516,17 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
                     lambda *a, n=n: allowance.update({len(frames.records): n}))
         on_call(syst.problems, "full_inertial_optimize",
                 lambda store, *a, **k: polishes.append(store.n_keyframes()))
+        inner_warmup = syst.warmup
+
+        def warmup():
+            t0 = time.perf_counter()
+            inner_warmup()
+            sync()
+            loaded["warmup_s"] = time.perf_counter() - t0
+            _zero(cuda_lib.launches)  # --realtime: the path starts here
+            loaded["builds"] = dict(cuda_lib.builds)
+
+        syst.warmup = warmup
         built.update(system=syst, meter=meter, frames=frames)
         return syst
 
@@ -2349,12 +2536,14 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
         loaded["builds"] = dict(cuda_lib.builds)
         return loaded["dataset"]
 
-    traj = out_dir / f"{kind}_trajectory.txt"
-    files = {flag: out_dir / f"{kind}_{name}" for flag, name in DATASET_EXPORTS.items()}
+    traj = out_dir / f"{profile}_trajectory.txt"
+    files = {flag: out_dir / f"{profile}_{name}" for flag, name in DATASET_EXPORTS.items()}
     argv = [kind, str(root / DATASET_SETTINGS_NAME), str(root), str(traj),
             "--vocab", str(SETTINGS / DATASET_VOCAB), "--device", str(device)]
     for flag, path in files.items():
         argv += [flag, str(path)]
+    if realtime:
+        argv.append("--realtime")
     if viewer_dir is not None:
         argv += ["--viewer-dir", str(viewer_dir)]
     config.build_system = build_system
@@ -2385,7 +2574,7 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
     decode_ms = 1e3 * (time.perf_counter() - t1) / len(paths)
 
     gt = str(root / DATASET_GT_NAME)
-    (ate,) = evaluate_sequences([(kind, str(traj), gt)], max_dt=SYSTEM_WORLD_MAX_DT,
+    (ate,) = evaluate_sequences([(profile, str(traj), gt)], max_dt=SYSTEM_WORLD_MAX_DT,
                                 log=lambda line: None)
     summary = system_world_summary(frames.records, meter.steps, syst, ate)
     t_kf, _, _ = load_tum(str(traj))
@@ -2397,14 +2586,27 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
     store, _ = load_map(str(files["--save-state"]))
     pngs = sorted(os.listdir(viewer_dir)) if viewer_dir is not None else []
     if viewer_dir is not None:
-        plot_out = str(out_dir / f"{kind}_plot.png")
+        plot_out = str(out_dir / f"{profile}_plot.png")
         results = plots.main([gt, str(traj), "-o", plot_out, "--labels", "port",
                               "--max-dt", str(SYSTEM_WORLD_MAX_DT)])
     else:
         _, _, results = plots.compare_trajectories(gt, [str(traj)], ["port"],
                                                    max_dt=SYSTEM_WORLD_MAX_DT)
+    # the frame period's budget against each System.track call as the
+    # pacing of run_sequence times it (the frame and its mapper steps)
+    budget_ms = 1e3 / profile_fps(profile)
+    track_ms = {r["frame"]: r["frame_ms"] for r in frames.records}
+    for m in meter.steps:
+        track_ms[m["frame"]] = track_ms.get(m["frame"], 0.0) + m["host_ms"]
     summary.update(
-        kind=kind, native_branch={"dataloader": branch, "map_ops": native.branch("map_ops")},
+        kind=kind, profile=profile, realtime=bool(realtime), warmup_s=loaded["warmup_s"],
+        frame_budget_ms=budget_ms,
+        frames_over_budget=sum(v > budget_ms for v in track_ms.values()),
+        width=syst.camera.width, height=syst.camera.height,
+        extractor=dict(width=syst.extractor.width, height=syst.extractor.height,
+                       n_features=syst.extractor.n_features,
+                       atlas=[syst.extractor.atlas_h, syst.extractor.atlas_w]),
+        native_branch={"dataloader": branch, "map_ops": native.branch("map_ops")},
         run_s=run_s, launches=launches, kernel_builds=builds, polish_kf_counts=polishes,
         local_k=syst.problems.local_k, region_syncs=dict(ledger.counts),
         sync_sites=dict(ledger.sites), viewer=viewer_note or "ran",
@@ -2423,18 +2625,22 @@ def dataset_cli(device, root, out_dir, kind="euroc", viewer=True, log=print):
     return frames.records, meter.steps, summary
 
 
-def dataset_cli_checks(dc, records, steps, on_card=True, kind="euroc"):
-    """The dataset CLI's gates on a `dataset_cli` run of a `kind` dataset:
-    against JAX_DATASET_CLI (EuRoC, path 10) or JAX_PROFILES[kind] (path
-    14, which adds the gates of PROFILE_*: imu_state 2, keyframes created,
-    the ATE over JAX's seeds and the family's bound, no kernel build after
-    the warm-up, K1-K4 launched, K4's large-D route whenever a polish held
-    more than local_k keyframes, and the fetch allowance of each tracked
-    frame). The fetch, sync and viewer-thread gates only on the card, where
-    they are counted. Returns the failures."""
-    euroc = kind == "euroc"
-    ref = JAX_DATASET_CLI if euroc else JAX_PROFILES[kind]
-    tag, fails = "dataset CLI" if euroc else f"profile {kind}", []
+def dataset_cli_checks(dc, records, steps, on_card=True, profile="euroc"):
+    """The dataset CLI's gates on a `dataset_cli` run of a `profile`
+    dataset: against JAX_DATASET_CLI (EuRoC, path 10) or
+    JAX_PROFILES[profile] (paths 14 and 15, which add the gates of
+    PROFILE_*: imu_state 2, keyframes created, the ATE over JAX's seeds and
+    the family's bound, no kernel build after the warm-up (System.warmup's
+    with --realtime, which must have run), K1-K4 launched, K4's large-D
+    route whenever a polish held more than local_k keyframes, and the fetch
+    allowance of each tracked frame). The fetch, sync and viewer-thread
+    gates only on the card, where they are counted. Returns the
+    failures."""
+    euroc = profile == "euroc"
+    ref = JAX_DATASET_CLI if euroc else JAX_PROFILES[profile]
+    tag, fails = "dataset CLI" if euroc else f"profile {profile}", []
+    if dc.get("realtime") and dc["warmup_s"] is None:
+        fails.append(f"{tag}: --realtime, and System.warmup did not run")
     if dc["native_branch"]["dataloader"] != "native":
         fails.append(f"{tag}: the loader took the {dc['native_branch']} branch")
     if dc["n_lost"]:
@@ -2519,9 +2725,11 @@ PROFILE_KERNELS = ("gather_patches", "match_rows", "hamming", "chol_solve")
 # the windows of K1's and the side of a keyframe-pair search on that run
 PROFILE_SEARCH = 1536
 # the family's battery bound on the keyframe ATE, scaled to the path:
-# corridor60's 4.5 m over its 480 m (run_validation.py) for the 160 m
-# drive; circlebow30's 0.4 m for the circle
-PROFILE_ATE_BOUND_M = {"kitti": 4.5 * 160.0 / 480.0, "tumvi": 0.4}
+# corridor60's 4.5 m over its 480 m (run_validation.py) for each drive at
+# 8 m/s (KITTI's 160 m, KAIST-VIO's 48 m, NTU-VIRAL's 72 m); circlebow30's
+# 0.4 m for the circle
+PROFILE_ATE_BOUND_M = {"kitti": 4.5 * 160.0 / 480.0, "tumvi": 0.4, "phone": 0.4,
+                       "kaist": 4.5 * 48.0 / 480.0, "ntu": 4.5 * 72.0 / 480.0, "recttum": 0.4}
 # the JAX package's runs of the same files through its `runners.datasets.
 # main` on the CPU (experiments/port_profiles_jax.py --seeds 0: its summary
 # at seed 0 of the tracker's RANSAC draws, the default; PERF.md records the
@@ -2536,7 +2744,17 @@ PROFILE_ATE_BOUND_M = {"kitti": 4.5 * 160.0 / 480.0, "tumvi": 0.4}
 # 399/400 OK, imu_state 2). KITTI: init at 4.6 s, ATE 0.275 m, 68 / 68 keyframes, polishes
 # at 17-61 keyframes (three above local_k 32: K4's large-D route). TUM-VI:
 # init at 3.95 s, ATE 22.4 mm, 77 / 80 keyframes, polishes at 17-76
-# (four above local_k)
+# (four above local_k). Path 15's four (experiments/port_profiles_jax.py
+# --kinds phone,kaist,ntu,recttum --seeds 0,1,2,3, the phone with
+# --realtime; every seed's summary in experiments/port_profiles_runs.json):
+# each entry seed 0's summary with seeds 0-3 in its *_over_seeds lists.
+# Phone 177-179/180 OK, init 4.70-4.93 s, 19-20 keyframes, ATE 1.47-3.39
+# mm; KAIST-VIO 178/180, init 4.07 s, 24 keyframes, ATE 31.6-67.8 mm; both
+# reach imu_state 2 in System.shutdown's pending gravity refinement (init
+# + 3 s lies past their 6 s). NTU-VIRAL 89/90, init 4.6 s, imu_state 2 at
+# 7.9 s, 31 keyframes, ATE 24.2-57.9 mm; rectified TUM-VI 159/160, init
+# 3.9 s, imu_state 2 at 7.0 s, 32 keyframes, ATE 3.07-5.58 mm. No polish
+# above local_k (17-29 keyframes)
 JAX_PROFILES = {
     "kitti": dict(n_frames=200, ok_frames=199, ok_ratio=0.995, n_lost=0, bootstrap_frame=1,
                   imu_state=2, imu_init_t=4.6, kf_ate_m=0.27524490604794016,
@@ -2558,6 +2776,46 @@ JAX_PROFILES = {
                                      0.023069818449493566, 0.021336503903239584],
                   n_kf_over_seeds=[77, 72, 73, 76], kf_created_over_seeds=[80, 75, 75, 79],
                   ate_bound_m=PROFILE_ATE_BOUND_M["tumvi"]),
+    "phone": dict(n_frames=180, ok_frames=178, ok_ratio=0.9888888888888889, n_lost=0,
+               bootstrap_frame=2, imu_state=2, imu_init_t=4.933333333,
+               kf_ate_m=0.003388375345569572, scale_err=0.05050088934515684,
+               n_kf=19, kf_created=19, n_points=2172, polish_kf_counts=[17, 19],
+               fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+               fetches_per_mapper_step=dict(p50=6.0, mean=6.470588235294118, max=10.0),
+               kf_ate_over_seeds=[0.003388375345569572, 0.0014747260350355472,
+                                  0.002070589932291785, 0.001693809034058671],
+               n_kf_over_seeds=[19, 19, 20, 19], kf_created_over_seeds=[19, 19, 20, 19],
+               ate_bound_m=PROFILE_ATE_BOUND_M["phone"]),
+    "kaist": dict(n_frames=180, ok_frames=178, ok_ratio=0.9888888888888889, n_lost=0,
+               bootstrap_frame=2, imu_state=2, imu_init_t=4.066666667,
+               kf_ate_m=0.03157006227948381, scale_err=0.11665132929861144,
+               n_kf=24, kf_created=24, n_points=1893, polish_kf_counts=[17, 24],
+               fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+               fetches_per_mapper_step=dict(p50=6.0, mean=6.818181818181818, max=10.0),
+               kf_ate_over_seeds=[0.03157006227948381, 0.061429501677372975,
+                                  0.03713464126405048, 0.06776832413147757],
+               n_kf_over_seeds=[24, 24, 24, 24], kf_created_over_seeds=[24, 24, 24, 24],
+               ate_bound_m=PROFILE_ATE_BOUND_M["kaist"]),
+    "ntu": dict(n_frames=90, ok_frames=89, ok_ratio=0.9888888888888889, n_lost=0,
+               bootstrap_frame=1, imu_state=2, imu_init_t=4.6,
+               kf_ate_m=0.05786437252891944, scale_err=0.08871457169141683,
+               n_kf=31, kf_created=31, n_points=2313, polish_kf_counts=[17, 28],
+               fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+               fetches_per_mapper_step=dict(p50=8.0, mean=7.241379310344827, max=12.0),
+               kf_ate_over_seeds=[0.05786437252891944, 0.029487553176391502,
+                                  0.024167040694580692, 0.02599753911809183],
+               n_kf_over_seeds=[31, 31, 31, 31], kf_created_over_seeds=[31, 31, 31, 31],
+               ate_bound_m=PROFILE_ATE_BOUND_M["ntu"]),
+    "recttum": dict(n_frames=160, ok_frames=159, ok_ratio=0.99375, n_lost=0,
+               bootstrap_frame=1, imu_state=2, imu_init_t=3.9,
+               kf_ate_m=0.0036640729961306163, scale_err=0.016281049501502443,
+               n_kf=32, kf_created=32, n_points=2656, polish_kf_counts=[17, 29],
+               fetches_per_tracked_frame=dict(p50=3.0, mean=3.0, max=3.0),
+               fetches_per_mapper_step=dict(p50=8.0, mean=7.266666666666667, max=12.0),
+               kf_ate_over_seeds=[0.0036640729961306163, 0.00558351701448536,
+                                  0.00416056556538911, 0.0030662413206153766],
+               n_kf_over_seeds=[32, 32, 32, 32], kf_created_over_seeds=[32, 32, 32, 32],
+               ate_bound_m=PROFILE_ATE_BOUND_M["recttum"]),
 }
 # the digests of the files experiments/port_profiles_jax.py wrote and read
 # on the CPU (`dataset_digest`: the whole folder's and each PNG's, its
@@ -2579,26 +2837,27 @@ def profile_digest_check(root, kind):
     digest, pngs = dataset_digest(root, kind)
     ref = json.loads(PROFILE_DIGESTS.read_text())[kind]
     differ = [name for name, h in pngs.items() if ref["pngs"].get(name) != h[:16]]
-    image_dir = Path(root) / DATASET_LAYOUTS[kind][1]
+    image_dir = Path(root) / DATASET_LAYOUTS[DATASET_PROFILES[kind]["layout"]][1]
     for name in differ[:PROFILE_PNGS_KEPT]:
         (PROFILE_PNGS_OUT / kind).mkdir(parents=True, exist_ok=True)
         shutil.copyfile(image_dir / name, PROFILE_PNGS_OUT / kind / name)
     return digest == ref["digest"], differ
 
 
-def profiles(device, roots, out_dir, log=lambda line: None):
-    """Path 14 on `device`: `dataset_cli` over each PROFILE_KINDS dataset
-    (roots: {kind: its root}) without the viewer, each once its
+def profiles(device, roots, out_dir, kinds=PROFILE_KINDS, log=lambda line: None):
+    """Paths 14 and 15 on `device`: `dataset_cli` over each profile's
+    dataset in `kinds` (PROFILE_KINDS, path 14's, or a lane of VIO_LANES;
+    roots: {profile: its root}) without the viewer, each once its
     `DatasetWriter` has written it (its seconds file exists) and checked
-    against PROFILE_DIGESTS first, with the kernels' last inputs of each run kept
-    for the kernel phase: K1's last launch, K2's last eight (a frame), K3's
-    last 16 searches, K4's last 8 cluster-route systems and last large-D
-    one. Returns {kind: dict(records, steps, summary, same_files,
+    against PROFILE_DIGESTS first, with the kernels' last inputs of each run
+    kept for the kernel phase: K1's last launch, K2's last eight (a frame),
+    K3's last 16 searches, K4's last 8 cluster-route systems and last
+    large-D one. Returns {profile: dict(records, steps, summary, same_files,
     differing_pngs, seconds, k1, k2, k3, k4, k4_l2)}."""
     from monoorbslam3_tpu_torch.ops import chol_pallas, match_pallas, pallas_kernels
 
     out = {}
-    for kind in PROFILE_KINDS:
+    for kind in kinds:
         _wait_file(Path(roots[kind]) / DatasetWriter.SECONDS_NAME)
         same, differ = profile_digest_check(roots[kind], kind)
         t0 = time.perf_counter()
@@ -2607,7 +2866,7 @@ def profiles(device, roots, out_dir, log=lambda line: None):
                 _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=16) as k3, \
                 _Capture(chol_pallas, "chol_solve_cluster", maxlen=8) as k4, \
                 _Capture(chol_pallas, "chol_solve_l2", maxlen=1) as k4l2:
-            records, steps, summary = dataset_cli(device, roots[kind], out_dir, kind=kind,
+            records, steps, summary = dataset_cli(device, roots[kind], out_dir, profile=kind,
                                                   viewer=False, log=log)
         out[kind] = dict(records=records, steps=steps, summary=summary, same_files=same,
                          differing_pngs=differ, seconds=time.perf_counter() - t0,
@@ -2616,34 +2875,139 @@ def profiles(device, roots, out_dir, log=lambda line: None):
     return out
 
 
-def profile_k2_checks(shapes):
-    """The gate on K2's launches of the last KITTI frame, given as (rows,
-    columns): the eight of K2_CALLS, with the frame's PROFILE_SEARCH
-    features as the rows (48 row tiles) of both coarse directions (the last
-    frame's against this one's) and of the local stage's transposed
-    launches, and as the columns of every "rows" launch. Returns the
-    failures."""
+def profile_k2_checks(shapes, n_features=PROFILE_SEARCH, name="KITTI"):
+    """The gate on K2's launches of the last frame of a profile (`name`), as (rows,
+    columns): the eight of K2_CALLS, with the frame's n_features features
+    (the profile's ORB.Features: 1,536 on KITTI, 48 row tiles) as the rows
+    of both coarse directions (the last frame's against this one's) and of
+    the local stage's transposed launches, and as the columns of every
+    "rows" launch. Returns the failures."""
     off = [(label, n, m) for label, (n, m) in zip(K2_CALLS, shapes)
-           if (n != PROFILE_SEARCH and (label.startswith("coarse")
-                                        or label.endswith("transposed")))
-           or (m != PROFILE_SEARCH and label.endswith(" rows"))]
+           if (n != n_features and (label.startswith("coarse")
+                                    or label.endswith("transposed")))
+           or (m != n_features and label.endswith(" rows"))]
     if len(shapes) == len(K2_CALLS) and not off:
         return []
-    return [f"profiles: K2's last KITTI frame ran {list(shapes)} (rows, columns), not "
-            f"{len(K2_CALLS)} launches with the frame's {PROFILE_SEARCH} features as the rows "
+    return [f"profiles: K2's last {name} frame ran {list(shapes)} (rows, columns), not "
+            f"{len(K2_CALLS)} launches with the frame's {n_features} features as the rows "
             f"of the coarse and the transposed ones and the columns of the \"rows\" ones "
             f"(off: {off})"]
 
 
-def profiles_checks(prof, on_card=True):
-    """Path 14's gates: `dataset_cli_checks` of each profile's run, and K4's
-    large-D route in at least one of them. Returns the failures."""
+def profile_shape_checks(profile, p):
+    """A profile's shapes on the card against its settings and extractor:
+    the camera's width and height are the settings file's, the extractor's
+    too; K1's last launch read the extractor's atlas (atlas_h x atlas_w)
+    at its feature count; K2's last frame's launches pass
+    `profile_k2_checks` at that count. Returns the failures."""
+    import yaml
+
+    s = yaml.safe_load((SETTINGS / DATASET_PROFILES[profile]["settings"]).read_text())
+    size = (int(s["Camera"]["Width"]), int(s["Camera"]["Height"]))
+    n_feat = int(s["ORB"]["Features"])
+    ext, summ, fails = p["summary"]["extractor"], p["summary"], []
+    if not (summ["width"], summ["height"]) == (ext["width"], ext["height"]) == size:
+        fails.append(f"profile {profile}: camera {summ['width']}x{summ['height']}, extractor "
+                     f"{ext['width']}x{ext['height']}, settings {size[0]}x{size[1]}")
+    k1 = [(tuple(a[0].shape), int(a[1].shape[0])) for a in p["k1"]]
+    if k1 != [(tuple(ext["atlas"]), n_feat)] or ext["n_features"] != n_feat:
+        fails.append(f"profile {profile}: K1's last launch read {k1} (atlas, K), the "
+                     f"extractor's atlas {ext['atlas']} at {ext['n_features']} features, the "
+                     f"settings' {n_feat}")
+    return fails + profile_k2_checks([(int(a[0].shape[0]), int(a[1].shape[0]))
+                                      for a in p["k2"]], n_feat, profile)
+
+
+def profiles_checks(prof, on_card=True, large_d=True):
+    """Path 14's and 15's gates: `dataset_cli_checks` of each profile's
+    run, and (path 14, `large_d`) K4's large-D route in at least one of
+    them. Returns the failures."""
     fails = []
-    for kind, p in prof.items():
-        fails += dataset_cli_checks(p["summary"], p["records"], p["steps"], on_card, kind)
-    if not any(p["summary"]["launches"]["chol_solve_l2"] for p in prof.values()):
+    for profile, p in prof.items():
+        fails += dataset_cli_checks(p["summary"], p["records"], p["steps"], on_card, profile)
+    if large_d and not any(p["summary"]["launches"]["chol_solve_l2"] for p in prof.values()):
         fails.append("profiles: K4's large-D route ran in neither profile")
     return fails
+
+
+def print_profiles(prof, card):
+    """Prints each profile run of `profiles` (paths 14 and 15) beside the
+    JAX package's: its files against the digests, states, fetches, mapper
+    steps, summary and the line of its outcome; with --realtime, the
+    warm-up and the frames over the frame period's budget."""
+    for kind, p in prof.items():
+        s, ref = p["summary"], JAX_PROFILES[kind]
+        print(f"profile {kind} files: the JAX run's {p['same_files']}; "
+              f"{len(p['differing_pngs'])} PNGs differ {p['differing_pngs'][:PROFILE_PNGS_KEPT]}"
+              + (f" (copied under {PROFILE_PNGS_OUT / kind}; experiments/port_profiles_jax.py "
+                 f"--count-pixels counts their pixels)" if p["differing_pngs"] else ""))
+        print(f"profile {kind} states:", "".join(str(r["state"]) for r in p["records"]))
+        print(f"profile {kind} fetches / allowance / syncs a frame:",
+              [(r["fetches"], r["fetch_allowance"], r["syncs"]) for r in p["records"]])
+        print(f"profile {kind} mapper steps (frame, KF, ms, fetches, syncs):",
+              [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+               for m in p["steps"]])
+        print(f"profile {kind} summary:", json.dumps(s))
+        print(f"profile {kind} against the JAX package on the CPU: {json.dumps(ref)}")
+        print(f"profile {kind} ({card}): {s['width']}x{s['height']}, OK "
+              f"{s['ok_frames']}/{s['n_frames']} (JAX's "
+              f"{ref['ok_frames']}), LOST {s['n_lost']}, bootstrap at frame "
+              f"{s['bootstrap_frame']} (JAX's {ref['bootstrap_frame']}), init at "
+              f"{s['imu_init_t']} s (JAX's {ref['imu_init_t']}), imu_state {s['imu_state']}, "
+              f"keyframe ATE {s['kf_ate_m']:.5f} m (JAX's {ref['kf_ate_m']:.5f}, over its "
+              f"seeds {json.dumps(ref['kf_ate_over_seeds'])}, bound "
+              f"{ref['ate_bound_m']:.2f}), scale error {s['scale_err']:.5f} (JAX's "
+              f"{ref['scale_err']:.5f}), keyframes {s['n_kf']} / {s['kf_created']} (JAX's "
+              f"{ref['n_kf']} / {ref['kf_created']}), points {s['n_points']} (JAX's "
+              f"{ref['n_points']}), polishes at {s['polish_kf_counts']} keyframes (JAX's "
+              f"{ref['polish_kf_counts']}); frame p50 {s['frame_ms']['p50']:.1f} / p99 "
+              f"{s['frame_ms']['p99']:.1f} ms, mapper step p50 {s['mapper_ms']['p50']:.1f} / "
+              f"p99 {s['mapper_ms']['p99']:.1f} ms; decode {s['decode_ms']:.2f} ms a frame, "
+              f"kernel builds {json.dumps(s['kernel_builds'])}")
+        if s["realtime"]:
+            print(f"profile {kind} --realtime ({card}): System.warmup {s['warmup_s']:.2f} s, "
+                  f"kernel builds after it {json.dumps(s['kernel_builds'])}; "
+                  f"{s['frames_over_budget']} of {s['n_frames']} System.track calls over the "
+                  f"{s['frame_budget_ms']:.1f} ms frame period")
+
+
+def profile_kernel_checks(prof, k1_k2_kinds):
+    """Holds the kernels' captured inputs of `profiles` runs to their plain
+    versions on the card: K1's last launch and K2's last eight of each
+    profile in k1_k2_kinds, K3's last searches of every run (bit-identical;
+    raises otherwise). Returns {profile: K3's (rows, columns)}."""
+    import torch
+
+    from monoorbslam3_tpu_torch.ops import match_pallas, pallas_kernels
+
+    k3_shapes, lines = {}, []
+    for kind in k1_k2_kinds:
+        p = prof[kind]
+        for a in p["k1"]:
+            got = pallas_kernels.gather_patches_cuda(*a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+                raise RuntimeError(f"K1 on the {kind} run's last frame disagrees with its plain "
+                                   f"version")
+        for label, a in zip(K2_CALLS, p["k2"]):
+            got = match_pallas._match_rows_cuda(*a)
+            torch.cuda.synchronize()
+            _same(got, match_pallas._match_rows_plain(*a), f"K2 profile {kind} {label}")
+        lines.append(f"K1 on the last {kind} frame's atlas {tuple(p['k1'][-1][0].shape)} K="
+                     f"{p['k1'][-1][1].shape[0]}, K2 on its {len(p['k2'])} launches "
+                     f"({[tuple(int(x.shape[0]) for x in a[:2]) for a in p['k2']]} rows x "
+                     f"columns)")
+    for kind, p in prof.items():
+        for a in p["k3"]:
+            got = pallas_kernels.hamming_matrix_cuda(*a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+                raise RuntimeError(f"K3 on the {kind} run's searches disagrees with its plain "
+                                   f"version")
+        k3_shapes[kind] = [tuple(int(x.shape[0]) for x in a[:2]) for a in p["k3"]]
+    print("profiles: " + "; ".join(lines) + f"; K3 on the last searches {json.dumps(k3_shapes)}: "
+          f"bit-identical")
+    return k3_shapes
 
 
 # path 11, the sharded BA: the distributed solver on a one-rank group (the
@@ -3939,6 +4303,15 @@ def main(argv=None) -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device",
           torch.cuda.get_device_name(0))
 
+    # path 15's four datasets, written by four children from the start (the
+    # phone's 180 frames at 1280x720 take ~400 s of one core of the card's
+    # host; its lane runs NTU-VIRAL first and the lanes' phase lasts as long
+    # as corridor60's, so it has room to wait)
+    vio_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_vio_")
+    vio_writers = {kind: DatasetWriter(Path(vio_tmp.name) / kind, kind) for kind in VIO_PROFILES}
+    for w in vio_writers.values():
+        atexit.register(w.close)
+
     # -- build the kernels from csrc/ -------------------------------------
     t0 = time.perf_counter()
     cuda_lib.build()
@@ -3967,7 +4340,7 @@ def main(argv=None) -> int:
     e2e_stream = _Prefetched(("synthetic", e2e_spec, e2e.REPO / e2e_settings))
     atexit.register(e2e_stream.close)
     e2e_reader = _Drained(e2e_stream)
-    # (path 13's and path 14's children start later, after paths 8 and 9,
+    # (path 13's and path 14's children start later, after path 8,
     # so that fewer children share the host with the paths at a time)
 
     # the host seconds of each phase, printed before the kernels' line
@@ -4169,101 +4542,15 @@ def main(argv=None) -> int:
     for lane in battery_lanes.values():
         atexit.register(lane.close)
 
-    # -- path 9, the system world: System.track over circlebow30 -------------
-    # (system_world sets the counts to 0 itself, after build_system and its
-    # warm-up); then the resume and the async runs of the same world
+    # path 9, the system world, in a lane of its own from here too: it drives
+    # the world once `go` exists (after path 12), beside paths 13-15's lanes
+    # (system_world sets the lane's counts to 0 itself, after build_system
+    # and its warm-up); then the resume and the async runs of the same world
     sw_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    t0 = time.perf_counter()
-    with _Capture(match_pallas, "_match_rows_cuda") as sw_k2, \
-            _Capture(pallas_kernels, "hamming_matrix_cuda", maxlen=4) as sw_k3, \
-            _Capture(pallas_kernels, "gather_patches_cuda", maxlen=1) as sw_k1, \
-            _Capture(chol_pallas, "chol_solve_cluster", maxlen=8) as sw_k4, \
-            _Capture(chol_pallas, "chol_solve_l2", maxlen=1) as sw_k4l2, \
-            _Capture(tracking, "projected_match", maxlen=1) as sw_ref:
-        sw_records, sw_steps, sw, sw_stream, sw_ckpt = system_world(dev, sw_tmp.name,
-                                                                    log=lambda line: None)
-    torch.cuda.synchronize()
-    sw_launches = sw["launches"]
-    print(f"system world: build_system {sw['build_s']:.2f} s, warmup {sw['warmup_s']:.2f} s, "
-          f"{len(sw_records)} frames in {sw['run_s']:.1f} s host "
-          f"({time.perf_counter() - t0:.1f} s with the exports); launches {json.dumps(sw_launches)}")
-    print("system world states:", "".join(str(r["state"]) for r in sw_records))
-    print("system world n_tracked:", [r["n_tracked"] for r in sw_records])
-    print("system world frame ms:", [round(r["frame_ms"], 1) for r in sw_records])
-    print("system world fetches / syncs a frame:",
-          [(r["fetches"], r["syncs"]) for r in sw_records])
-    print("system world mapper steps (frame, KF, ms, fetches, syncs):",
-          [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
-           for m in sw_steps])
-    print(f"system world full polishes at keyframe counts {sw['polish_kf_counts']} (JAX's "
-          f"{JAX_SYSTEM_WORLD['polish_kf_counts']}; above local_k the grouped problem, "
-          f"K4's large-D route: {sw_launches['chol_solve_l2']} launches)")
-    print("system world summary:", json.dumps(sw))
-    print(f"system world against the JAX package on the CPU: {json.dumps(JAX_SYSTEM_WORLD)}")
-    print(f"system world ({card}): OK {sw['ok_frames']}/{sw['n_frames']} (JAX's "
-          f"{JAX_SYSTEM_WORLD['ok_frames']}/{JAX_SYSTEM_WORLD['n_frames']}), LOST {sw['n_lost']}, "
-          f"imu_state {sw['imu_state']} (JAX's {JAX_SYSTEM_WORLD['imu_state']}), init at "
-          f"{sw['imu_init_t']} s (JAX's {JAX_SYSTEM_WORLD['imu_init_t']}), keyframe ATE "
-          f"{sw['kf_ate_m']:.5f} m (JAX's {JAX_SYSTEM_WORLD['kf_ate_m']:.5f}, bound "
-          f"{SYSTEM_WORLD_ATE_BOUND_M}), scale error {sw['scale_err']:.5f} (JAX's "
-          f"{JAX_SYSTEM_WORLD['scale_err']:.5f}, bound {SYSTEM_WORLD_SCALE_BOUND}), keyframes "
-          f"{sw['n_kf']} (JAX's {JAX_SYSTEM_WORLD['n_kf']}), points {sw['n_points']} (JAX's "
-          f"{JAX_SYSTEM_WORLD['n_points']}); frame p50 {sw['frame_ms']['p50']:.1f} ms, p99 "
-          f"{sw['frame_ms']['p99']:.1f} ms; mapper step p50 {sw['mapper_ms']['p50']:.1f} ms, "
-          f"mean {sw['mapper_ms']['mean']:.1f} ms")
-    for label, a in zip(K2_CALLS, sw_k2.calls):
-        got = match_pallas._match_rows_cuda(*a)
-        torch.cuda.synchronize()
-        _same(got, match_pallas._match_rows_plain(*a), f"K2 system world {label}")
-    # the last projected match of the path is the node-gated reference-
-    # keyframe match system_world replays on the last frame: K2 with the
-    # vocabulary's groups, held to the same match on the CPU's plain path
-    ref_args, ref_kw = sw_ref.calls[-1], sw_ref.kwargs[-1]
-    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
-    n0 = cuda_lib.launches["match_rows"]
-    got = tracking.projected_match(*ref_args, **ref_kw)
-    torch.cuda.synchronize()
-    node_gated_launches = cuda_lib.launches["match_rows"] - n0
-    ref = tracking.projected_match(*map(cpu, ref_args), **{k: cpu(v) for k, v in ref_kw.items()})
-    if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
-        raise RuntimeError("K2 on the node-gated reference-keyframe match disagrees with the "
-                           "CPU's plain path")
-    for a in sw_k3.calls:
-        got = pallas_kernels.hamming_matrix_cuda(*a)
-        torch.cuda.synchronize()
-        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
-            raise RuntimeError("K3 on the system world's searches disagrees with its plain version")
-    for a in sw_k1.calls:
-        got = pallas_kernels.gather_patches_cuda(*a)
-        torch.cuda.synchronize()
-        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
-            raise RuntimeError("K1 on the system world's last frame disagrees with its plain version")
-    print(f"system world: K2 on the last frame's {len(sw_k2.calls)} launches and on the "
-          f"{node_gated_launches} launches of the node-gated reference-keyframe match "
-          f"replayed on the last frame ({sw['ref_kf_matches']} such matches on the path), K3 "
-          f"on the last {len(sw_k3.calls)} searches (every keyframe feature node-gated: "
-          f"{sw['kf_features_grouped']}), K1 on the last frame: bit-identical; K4's last "
-          f"{len(sw_k4.calls)} cluster-route and {len(sw_k4l2.calls)} large-D systems join the "
-          f"K4 phase")
-    t0 = time.perf_counter()
-    resume_records = system_resume(dev, sw_ckpt, sw_stream, log=lambda line: None)
-    print(f"system resume ({time.perf_counter() - t0:.1f} s): frames "
-          f"{SYSTEM_WORLD_FRAMES}..{SYSTEM_WORLD_FRAMES + len(resume_records) - 1} states "
-          + "".join(str(r["state"]) for r in resume_records) + ", n_tracked "
-          + str([r["n_tracked"] for r in resume_records]))
-    t0 = time.perf_counter()
-    async_records, async_steps, sa = system_async(dev, sw_tmp.name, log=lambda line: None)
-    print(f"system async ({time.perf_counter() - t0:.1f} s): states "
-          + "".join(str(r["state"]) for r in async_records))
-    print("system async summary:", json.dumps(sa))
-    print(f"system async ({card}): frame p50 {sa['frame_ms']['p50']:.1f} ms, p99 "
-          f"{sa['frame_ms']['p99']:.1f} ms with the mapper on its own thread (the sync run: p50 "
-          f"{sw['frame_ms']['p50']:.1f}, p99 {sw['frame_ms']['p99']:.1f} ms); "
-          f"{len(async_steps)} mapper steps, keyframe ATE {sa['kf_ate_m']:.5f} m, init "
-          f"{sa['imu_init_t']} s, queue drained {sa['queue_drained']}")
-    sw_tmp.cleanup()
+    system_lane_ = Lane(Path(sw_tmp.name) / "system.pkl", "system_lane", str(dev), sw_tmp.name,
+                        str(go))
+    atexit.register(system_lane_.close)
 
-    lap()
     # path 14's two datasets, written by two more children from here
     prof_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_profiles_")
     profile_writers = {kind: DatasetWriter(Path(prof_tmp.name) / kind, kind)
@@ -4384,7 +4671,8 @@ def main(argv=None) -> int:
           f"builds after the warm-up {json.dumps(e['kernel_builds_after_warmup'])}")
 
     lap()
-    # -- paths 13 and 14, side by side in three lanes (`Lane`) ----------------
+    # -- paths 9 and 13-15, side by side in six lanes (`Lane`) ---------------
+    # path 9, the system world, in the lane made after path 8;
     # path 13, the battery: two whole worlds through runners.validation,
     # each in a lane of its own (battery_world sets the lane's counts to 0
     # itself, after the world's warm-up; the path's launches are the two
@@ -4392,13 +4680,22 @@ def main(argv=None) -> int:
     # path 14, the profiles: runners.datasets.main over KITTI and TUM-VI in
     # the third lane (dataset_cli sets the counts to 0 when main has built
     # its System; the path's launches are the two runs' summed)
+    # path 15, the last four profiles: runners.datasets.main over the phone
+    # (with --realtime), KAIST-VIO, NTU-VIRAL and rectified TUM-VI in two
+    # more lanes (VIO_LANES; dataset_cli sets each lane's counts to 0 when
+    # main has built its System, or when its warm-up has returned)
     go.touch()
     t0 = time.perf_counter()
     profiles_lane = Lane(Path(prof_tmp.name) / "profiles.pkl", "profiles", str(dev),
                          {kind: str(w.out) for kind, w in profile_writers.items()},
                          prof_tmp.name)
     atexit.register(profiles_lane.close)
-    for w in profile_writers.values():
+    vio_roots = {kind: str(w.out) for kind, w in vio_writers.items()}
+    vio_lanes = [Lane(Path(vio_tmp.name) / f"lane{i}.pkl", "profiles", str(dev), vio_roots,
+                      vio_tmp.name, kinds) for i, kinds in enumerate(VIO_LANES)]
+    for lane in vio_lanes:
+        atexit.register(lane.close)
+    for w in (*profile_writers.values(), *vio_writers.values()):
         w.wait()  # raises if a writer failed
     bat = {name: lane.result(dev) for name, lane in battery_lanes.items()}
     bat_s = time.perf_counter() - t0
@@ -4464,6 +4761,92 @@ def main(argv=None) -> int:
           f"K4 phase")
 
     lap()
+    # -- path 9's results (its lane ran beside paths 13-15's) -----------------
+    sys_run = system_lane_.result(dev)
+    sw_records, sw_steps, sw = sys_run["records"], sys_run["steps"], sys_run["summary"]
+    sw_k1, sw_k2, sw_k3 = sys_run["k1"], sys_run["k2"], sys_run["k3"]
+    sw_k4, sw_k4l2 = sys_run["k4"], sys_run["k4_l2"]
+    sw_launches = sw["launches"]
+    print(f"system world: build_system {sw['build_s']:.2f} s, warmup {sw['warmup_s']:.2f} s, "
+          f"{len(sw_records)} frames in {sw['run_s']:.1f} s host "
+          f"({sys_run['seconds']:.1f} s with the exports, in its lane); launches "
+          f"{json.dumps(sw_launches)}")
+    print("system world states:", "".join(str(r["state"]) for r in sw_records))
+    print("system world n_tracked:", [r["n_tracked"] for r in sw_records])
+    print("system world frame ms:", [round(r["frame_ms"], 1) for r in sw_records])
+    print("system world fetches / syncs a frame:",
+          [(r["fetches"], r["syncs"]) for r in sw_records])
+    print("system world mapper steps (frame, KF, ms, fetches, syncs):",
+          [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
+           for m in sw_steps])
+    print(f"system world full polishes at keyframe counts {sw['polish_kf_counts']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['polish_kf_counts']}; above local_k the grouped problem, "
+          f"K4's large-D route: {sw_launches['chol_solve_l2']} launches)")
+    print("system world summary:", json.dumps(sw))
+    print(f"system world against the JAX package on the CPU: {json.dumps(JAX_SYSTEM_WORLD)}")
+    print(f"system world ({card}): OK {sw['ok_frames']}/{sw['n_frames']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['ok_frames']}/{JAX_SYSTEM_WORLD['n_frames']}), LOST {sw['n_lost']}, "
+          f"imu_state {sw['imu_state']} (JAX's {JAX_SYSTEM_WORLD['imu_state']}), init at "
+          f"{sw['imu_init_t']} s (JAX's {JAX_SYSTEM_WORLD['imu_init_t']}), keyframe ATE "
+          f"{sw['kf_ate_m']:.5f} m (JAX's {JAX_SYSTEM_WORLD['kf_ate_m']:.5f}, bound "
+          f"{SYSTEM_WORLD_ATE_BOUND_M}), scale error {sw['scale_err']:.5f} (JAX's "
+          f"{JAX_SYSTEM_WORLD['scale_err']:.5f}, bound {SYSTEM_WORLD_SCALE_BOUND}), keyframes "
+          f"{sw['n_kf']} (JAX's {JAX_SYSTEM_WORLD['n_kf']}), points {sw['n_points']} (JAX's "
+          f"{JAX_SYSTEM_WORLD['n_points']}); frame p50 {sw['frame_ms']['p50']:.1f} ms, p99 "
+          f"{sw['frame_ms']['p99']:.1f} ms; mapper step p50 {sw['mapper_ms']['p50']:.1f} ms, "
+          f"mean {sw['mapper_ms']['mean']:.1f} ms")
+    for label, a in zip(K2_CALLS, sw_k2):
+        got = match_pallas._match_rows_cuda(*a)
+        torch.cuda.synchronize()
+        _same(got, match_pallas._match_rows_plain(*a), f"K2 system world {label}")
+    # the last projected match of the path is the node-gated reference-
+    # keyframe match system_world replays on the last frame: K2 with the
+    # vocabulary's groups, held to the same match on the CPU's plain path
+    ref_args, ref_kw = sys_run["ref"]
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    n0 = cuda_lib.launches["match_rows"]
+    got = tracking.projected_match(*ref_args, **ref_kw)
+    torch.cuda.synchronize()
+    node_gated_launches = cuda_lib.launches["match_rows"] - n0
+    ref = tracking.projected_match(*map(cpu, ref_args), **{k: cpu(v) for k, v in ref_kw.items()})
+    if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+        raise RuntimeError("K2 on the node-gated reference-keyframe match disagrees with the "
+                           "CPU's plain path")
+    for a in sw_k3:
+        got = pallas_kernels.hamming_matrix_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
+            raise RuntimeError("K3 on the system world's searches disagrees with its plain version")
+    for a in sw_k1:
+        got = pallas_kernels.gather_patches_cuda(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
+            raise RuntimeError("K1 on the system world's last frame disagrees with its plain version")
+    print(f"system world: K2 on the last frame's {len(sw_k2)} launches and on the "
+          f"{node_gated_launches} launches of the node-gated reference-keyframe match "
+          f"replayed on the last frame ({sw['ref_kf_matches']} such matches on the path), K3 "
+          f"on the last {len(sw_k3)} searches (every keyframe feature node-gated: "
+          f"{sw['kf_features_grouped']}), K1 on the last frame: bit-identical; K4's last "
+          f"{len(sw_k4)} cluster-route and {len(sw_k4l2)} large-D systems join the "
+          f"K4 phase")
+    resume_records = sys_run["resume"]
+    print(f"system resume ({sys_run['resume_s']:.1f} s): frames "
+          f"{SYSTEM_WORLD_FRAMES}..{SYSTEM_WORLD_FRAMES + len(resume_records) - 1} states "
+          + "".join(str(r["state"]) for r in resume_records) + ", n_tracked "
+          + str([r["n_tracked"] for r in resume_records]))
+    async_records, async_steps, sa = (sys_run["async_records"], sys_run["async_steps"],
+                                      sys_run["async_summary"])
+    print(f"system async ({sys_run['async_s']:.1f} s): states "
+          + "".join(str(r["state"]) for r in async_records))
+    print("system async summary:", json.dumps(sa))
+    print(f"system async ({card}): frame p50 {sa['frame_ms']['p50']:.1f} ms, p99 "
+          f"{sa['frame_ms']['p99']:.1f} ms with the mapper on its own thread (the sync run: p50 "
+          f"{sw['frame_ms']['p50']:.1f}, p99 {sw['frame_ms']['p99']:.1f} ms); "
+          f"{len(async_steps)} mapper steps, keyframe ATE {sa['kf_ate_m']:.5f} m, init "
+          f"{sa['imu_init_t']} s, queue drained {sa['queue_drained']}")
+    sw_tmp.cleanup()
+
+    lap()
     # -- path 14's results (its lane ran beside path 13's) --------------------
     print("profiles: written by child processes in " + ", ".join(
         f"{kind} {w.seconds:.1f} s ({DATASET_PROFILES[kind]['frames']} frames)"
@@ -4475,63 +4858,38 @@ def main(argv=None) -> int:
     print(f"profiles ({time.perf_counter() - t0:.1f} s from the lanes' start, beside path 13's "
           f"lanes: " + ", ".join(f"{kind} {p['seconds']:.1f}" for kind, p in prof.items())
           + f"); launches {json.dumps(prof_launches)}")
-    for kind, p in prof.items():
-        s, ref = p["summary"], JAX_PROFILES[kind]
-        print(f"profile {kind} files: the JAX run's {p['same_files']}; "
-              f"{len(p['differing_pngs'])} PNGs differ {p['differing_pngs'][:PROFILE_PNGS_KEPT]}"
-              + (f" (copied under {PROFILE_PNGS_OUT / kind}; experiments/port_profiles_jax.py "
-                 f"--count-pixels counts their pixels)" if p["differing_pngs"] else ""))
-        print(f"profile {kind} states:", "".join(str(r["state"]) for r in p["records"]))
-        print(f"profile {kind} fetches / allowance / syncs a frame:",
-              [(r["fetches"], r["fetch_allowance"], r["syncs"]) for r in p["records"]])
-        print(f"profile {kind} mapper steps (frame, KF, ms, fetches, syncs):",
-              [(m["frame"], m["kf"], round(m["host_ms"], 1), m["fetches"], m["syncs"])
-               for m in p["steps"]])
-        print(f"profile {kind} summary:", json.dumps(s))
-        print(f"profile {kind} against the JAX package on the CPU: {json.dumps(ref)}")
-        print(f"profile {kind} ({card}): OK {s['ok_frames']}/{s['n_frames']} (JAX's "
-              f"{ref['ok_frames']}), LOST {s['n_lost']}, bootstrap at frame "
-              f"{s['bootstrap_frame']} (JAX's {ref['bootstrap_frame']}), init at "
-              f"{s['imu_init_t']} s (JAX's {ref['imu_init_t']}), imu_state {s['imu_state']}, "
-              f"keyframe ATE {s['kf_ate_m']:.5f} m (JAX's {ref['kf_ate_m']:.5f}, over its "
-              f"seeds {json.dumps(ref['kf_ate_over_seeds'])}, bound "
-              f"{ref['ate_bound_m']:.2f}), scale error {s['scale_err']:.5f} (JAX's "
-              f"{ref['scale_err']:.5f}), keyframes {s['n_kf']} / {s['kf_created']} (JAX's "
-              f"{ref['n_kf']} / {ref['kf_created']}), points {s['n_points']} (JAX's "
-              f"{ref['n_points']}), polishes at {s['polish_kf_counts']} keyframes (JAX's "
-              f"{ref['polish_kf_counts']}); frame p50 {s['frame_ms']['p50']:.1f} / p99 "
-              f"{s['frame_ms']['p99']:.1f} ms, mapper step p50 {s['mapper_ms']['p50']:.1f} / "
-              f"p99 {s['mapper_ms']['p99']:.1f} ms; decode {s['decode_ms']:.2f} ms a frame, "
-              f"kernel builds {json.dumps(s['kernel_builds'])}")
+    print_profiles(prof, card)
     # each kernel on this path's inputs, against its plain version: K1 on
     # the last KITTI frame's atlas (K = 1,536), K2 on its eight launches
     # (1,536 rows), K3 on the last searches of both runs; K4's systems
     # join the K4 phase
+    k3_shapes = profile_kernel_checks(prof, ("kitti",))
     pk = prof["kitti"]
-    for a in pk["k1"]:
-        got = pallas_kernels.gather_patches_cuda(*a)
-        torch.cuda.synchronize()
-        if not torch.equal(got, pallas_kernels.gather_patches_plain(*a)):
-            raise RuntimeError("K1 on the KITTI run's last frame disagrees with its plain version")
-    for label, a in zip(K2_CALLS, pk["k2"]):
-        got = match_pallas._match_rows_cuda(*a)
-        torch.cuda.synchronize()
-        _same(got, match_pallas._match_rows_plain(*a), f"K2 profile kitti {label}")
-    k3_shapes = {}
-    for kind, p in prof.items():
-        for a in p["k3"]:
-            got = pallas_kernels.hamming_matrix_cuda(*a)
-            torch.cuda.synchronize()
-            if not torch.equal(got, pallas_kernels.hamming_matrix_plain(*a)):
-                raise RuntimeError(f"K3 on the {kind} run's searches disagrees with its plain "
-                                   f"version")
-        k3_shapes[kind] = [tuple(int(x.shape[0]) for x in a[:2]) for a in p["k3"]]
-    print(f"profiles: K1 on the last KITTI frame's atlas {tuple(pk['k1'][-1][0].shape)} K="
-          f"{pk['k1'][-1][1].shape[0]}, K2 on its {len(pk['k2'])} launches "
-          f"({[tuple(int(x.shape[0]) for x in a[:2]) for a in pk['k2']]} rows x columns), K3 "
-          f"on the last searches "
-          f"{json.dumps(k3_shapes)}: bit-identical")
     prof_tmp.cleanup()
+
+    lap()
+    # -- path 15's results (its two lanes ran beside paths 13 and 14) ---------
+    print("path 15: written by child processes in " + ", ".join(
+        f"{kind} {w.seconds:.1f} s ({DATASET_PROFILES[kind]['frames']} frames)"
+        for kind, w in vio_writers.items()))
+    vio = {}
+    for lane in vio_lanes:
+        vio.update(lane.result(dev))
+    vio = {kind: vio[kind] for kind in VIO_PROFILES}
+    vio_launches = collections.Counter()
+    for p in vio.values():
+        vio_launches.update(p["summary"]["launches"])
+    print(f"path 15 ({time.perf_counter() - t0:.1f} s from the lanes' start, beside paths 13 "
+          f"and 14, lanes {json.dumps(VIO_LANES)}: "
+          + ", ".join(f"{kind} {p['seconds']:.1f}" for kind, p in vio.items())
+          + f"); launches {json.dumps(vio_launches)}")
+    print_profiles(vio, card)
+    # each kernel on this path's inputs, against its plain version: K1 on
+    # each profile's last frame (the phone's 1280x720 atlas among them), K2
+    # on each one's last eight launches, K3 on each one's last searches;
+    # K4's systems join the K4 phase
+    profile_kernel_checks(vio, VIO_PROFILES)
+    vio_tmp.cleanup()
 
     ab_chol = _ab_build(ab_dir, "chol_solve.cu")
     polish_ab = None
@@ -4601,6 +4959,14 @@ def main(argv=None) -> int:
     k1_lib, _ = _time_kernel(lambda: windows[y0, x0])
     k1_b = k1_bound(atlas, ys, xs)
     k1_b_l2 = k1_bound(atlas, ys, xs, atlas_in_l2=True)
+    # on the phone's last frame (path 15): the largest atlas of any profile
+    # (1280x720: 3379x1536 f32, 20.8 MB, inside the L2 as the path finds it)
+    ph_atlas, ph_ys, ph_xs = vio["phone"]["k1"][-1]
+    k1_phone, _ = _time_kernel(lambda: pallas_kernels.gather_patches_cuda(ph_atlas, ph_ys, ph_xs))
+    k1_b_phone = k1_bound(ph_atlas, ph_ys, ph_xs, atlas_in_l2=True)
+    print(f"K1 on the phone's atlas {tuple(ph_atlas.shape)} ({ph_atlas.nbytes / 1e6:.1f} MB) "
+          f"K={ph_ys.shape[0]}: device {k1_phone:.5f} ms (bound {k1_b_phone['bound_us']:.3f} us, "
+          f"atlas in L2)")
     print(f"K1 atlas {tuple(atlas.shape)} K={ys.shape[0]}: bit-exact; device {k1_dev:.5f} ms "
           f"(atlas in L2; bound {k1_b_l2['bound_us']:.3f} us, "
           f"{k1_b_l2['bound_us'] / (1e3 * k1_dev):.0%} of it), {k1_cold:.5f} ms with the L2 "
@@ -4619,10 +4985,13 @@ def main(argv=None) -> int:
                         launches_measure=meas_launches["gather_patches"],
                         launches_battery=bat_launches["gather_patches"],
                         launches_profiles=prof_launches["gather_patches"],
+                        launches_vio_profiles=vio_launches["gather_patches"],
                         launches_per_frame=launches["gather_patches"] / n_frames,
                         max_abs_err=k1_err, ms=k1_dev, device_ms=k1_dev, call_ms=k1_call,
                         plain_ms=k1_plain, library_ms=k1_lib, **k1_b,
                         device_ms_l2_exceeded=k1_cold, bound_us_atlas_in_l2=k1_b_l2["bound_us"],
+                        device_ms_phone_atlas=k1_phone, phone_atlas=list(ph_atlas.shape),
+                        bound_us_phone_atlas=k1_b_phone["bound_us"],
                         **k1_ab))
 
     # K2 on all eight launches of the last frame (K2_CALLS), and on seeded
@@ -4692,6 +5061,7 @@ def main(argv=None) -> int:
                         launches_measure=meas_launches["match_rows"],
                         launches_battery=bat_launches["match_rows"],
                         launches_profiles=prof_launches["match_rows"],
+                        launches_vio_profiles=vio_launches["match_rows"],
                         launches_per_frame=launches["match_rows"] / n_fr,
                         max_abs_err=k2_err, ms=per_call["device_ms"], **per_call,
                         bound_us=1e3 * per_call["bound_ms"], bound_by=top["bound_by"],
@@ -4750,6 +5120,7 @@ def main(argv=None) -> int:
                         launches_measure=meas_launches["hamming"],
                         launches_battery=bat_launches["hamming"],
                         launches_profiles=prof_launches["hamming"],
+                        launches_vio_profiles=vio_launches["hamming"],
                         launches_per_frame=launches["hamming"] / n_fr,
                         launches_per_search=map_launches["hamming"], max_abs_err=k3_err,
                         ms=k3["device_ms"], **k3, bound_us=1e3 * k3["bound_ms"],
@@ -4770,8 +5141,8 @@ def main(argv=None) -> int:
                "polish G=2": polish["polish_parallel"]["systems"],
                "store local G=1": sba["systems"]["local_full_bundle_adjustment"],
                "store polish G=1": sba["systems"]["full_inertial_optimize"],
-               "track map G=1": list(tm_k4.calls), "system world G=1": list(sw_k4.calls),
-               **({"system world large-D": list(sw_k4l2.calls)} if sw_k4l2.calls else {}),
+               "track map G=1": list(tm_k4.calls), "system world G=1": sw_k4,
+               **({"system world large-D": sw_k4l2} if sw_k4l2 else {}),
                **seeded}
     # the battery's systems (the last local windows' and polishes' of its
     # path), split by their condition number at K4_FWD_COND
@@ -4782,7 +5153,7 @@ def main(argv=None) -> int:
               f"{json.dumps([float(f'{c:.3g}') for c in conds])}")
     # path 14's: each profile's last local windows and its last large-D
     # polish system, split likewise
-    for kind, p in prof.items():
+    for kind, p in {**prof, **vio}.items():
         for label, calls in ((f"profile {kind} G=1", p["k4"]),
                              (f"profile {kind} large-D", p["k4_l2"])):
             parts, conds = k4_split(label, calls)
@@ -4922,6 +5293,7 @@ def main(argv=None) -> int:
                         launches_measure=meas_launches["chol_solve"],
                         launches_battery=bat_launches["chol_solve"],
                         launches_profiles=prof_launches["chol_solve"],
+                        launches_vio_profiles=vio_launches["chol_solve"],
                         launches_store_ba_per_call={n: c["chol_solve"] for n, c in store_k4.items()},
                         launches_per_solve=len(ba["flat_deferred"]["systems"]),
                         ms=g1["device_ms"], **{k: v for k, v in g1.items() if k != "route"},
@@ -4940,6 +5312,7 @@ def main(argv=None) -> int:
                         launches_measure=meas_launches["chol_solve_l2"],
                         launches_battery=bat_launches["chol_solve_l2"],
                         launches_profiles=prof_launches["chol_solve_l2"],
+                        launches_vio_profiles=vio_launches["chol_solve_l2"],
                         launches_store_ba_per_call={n: c["chol_solve_l2"] for n, c in store_k4.items()},
                         launches_per_solve=polish["polish_deferred"]["k4_launches_in_solve"]["chol_solve_l2"],
                         ms=p1["device_ms"], **{k: v for k, v in p1.items() if k != "route"},
@@ -5046,6 +5419,9 @@ def main(argv=None) -> int:
     if pk["k1"][-1][1].shape[0] != PROFILE_SEARCH:
         failures.append(f"profiles: K1's last KITTI launch gathered {pk['k1'][-1][1].shape[0]} "
                         f"windows")
+    failures += profiles_checks(vio, large_d=False)
+    for kind, p in vio.items():
+        failures += profile_shape_checks(kind, p)
     for name, r in polish.items():
         n_sys = len(r["systems"])
         if r["k4_launches_in_solve"] != {"chol_solve": 0, "chol_solve_l2": n_sys} or n_sys != POLISH_ITERS:
@@ -5107,9 +5483,11 @@ def main(argv=None) -> int:
     if np.median(r_errs) > MAX_MEDIAN_R_ERR_DEG:
         failures.append(f"median rotation error {np.median(r_errs)} deg")
     lap()
-    # (path 13's entry is the battery lanes' wall time and their checks,
-    # path 14's the rest of its lane's, its checks and the A/B polish)
-    print("seconds of the build, paths 1-14, the kernel phases and the results:",
+    # (in order: the build; paths 1-8; path 10 with path 9's lane made; paths
+    # 11 and 12; the lanes' phase, until the battery's lanes end, with their
+    # checks; the rest of path 9's lane and its checks; path 14's; path 15's
+    # with the A/B polish; the kernel phases; the results)
+    print("seconds of the build, paths 1-15, the kernel phases and the results:",
           json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": kernels}))

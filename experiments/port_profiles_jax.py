@@ -1,14 +1,16 @@
-"""chip_smoke.py's profiles path (path 14) through the JAX package, on the CPU.
+"""chip_smoke.py's profiles paths (paths 14 and 15) through the JAX package, on the CPU.
 
-Writes chip_smoke's KITTI-raw and TUM-VI datasets (`chip_smoke.write_dataset`
-with kind "kitti" and "tumvi": the port's renderer, whose frames are the
-JAX package's to the byte; PNGs in each kind's layout, the IMU rows, the
+Writes chip_smoke's profile datasets (`chip_smoke.write_dataset` of each
+profile: "kitti" and "tumvi", path 14's; "phone", "kaist", "ntu" and
+"recttum", path 15's; the port's renderer, whose frames are the JAX
+package's to the byte; PNGs in each profile's layout, the IMU rows, the
 ground truth and the settings file) and runs the JAX package's user entry
 point over each, as `chip_smoke.dataset_cli` runs the port's:
 
-    runners.datasets.main([kind, settings, root, traj, "--vocab",
+    runners.datasets.main([layout kind, settings, root, traj, "--vocab",
         settings/synthetic_voc_100k.txt.gz, "--velocity-out", ...,
-        "--map-out", ..., "--depth-out", ..., "--save-state", ...])
+        "--map-out", ..., "--depth-out", ..., "--save-state", ...
+        (, "--realtime" for the phone)])
 
 once a seed of the tracker's RANSAC draws (the `seed` knob of `Tracking`,
 passed through `build_system`'s `config_overrides`; patched in this
@@ -23,10 +25,19 @@ chip_smoke.PROFILE_DIGESTS), the per-frame
 records and the summary that chip_smoke's JAX_PROFILES bounds come from
 (`chip_smoke.system_world_summary` and the keyframe ATE of the exported
 trajectory against the written ground truth, `evaluate_sequences` with
-max_dt 0.05), and writes it to OUT/<kind>_s<seed>.json.
+max_dt 0.05; with the time of the first frame at imu_state 2 and of the
+last frame), and writes it to OUT/<profile>_s<seed>.json.
 
     python experiments/port_profiles_jax.py [--kinds kitti,tumvi] [--seeds 0]
         [--jobs 2] [--out DIR] [--count-pixels DIR]
+    python experiments/port_profiles_jax.py --kinds phone,kaist,ntu,recttum \
+        --seeds 0,1,2,3 --jobs 4
+    python experiments/port_profiles_jax.py --kinds ntu --collect DIR
+
+Every run's summary is also merged into experiments/port_profiles_runs.json
+(profile -> seed -> summary: the record chip_smoke's JAX_PROFILES of path
+15 is built from); `--collect DIR` runs nothing and merges the summaries of
+`--kinds` that DIR already holds.
 
 `--count-pixels DIR` runs nothing: it counts, PNG by PNG, the pixels in
 which the PNGs under DIR/<kind>/ (those of another host's render that
@@ -34,9 +45,10 @@ chip_smoke's path 14 found to differ from the digests and copied to
 chip_smoke.PROFILE_PNGS_OUT) differ from this host's render of the same
 files in OUT.
 
-Each (kind, seed) runs in a process of its own, `--jobs` at a time. About
+Each (profile, seed) runs in a process of its own, `--jobs` at a time. About
 10-20 minutes a run on a CPU (the datasets are written first, ~3 minutes,
-and reused when OUT already holds them).
+~5 for the phone's 1280x720 frames, and reused when OUT already holds
+them).
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import time
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
+RUNS = os.path.join(ROOT, "experiments", "port_profiles_runs.json")
 
 
 def run(kind, seed, out):
@@ -101,10 +114,13 @@ def run(kind, seed, out):
     tag = f"jax_{kind}_s{seed}"
     files = {flag: os.path.join(out, f"{tag}_{name}") for flag, name in cs.DATASET_EXPORTS.items()}
     traj = os.path.join(out, f"{tag}_trajectory.txt")
-    argv = [kind, os.path.join(root, cs.DATASET_SETTINGS_NAME), root, traj,
+    prof = cs.DATASET_PROFILES[kind]
+    argv = [prof["layout"], os.path.join(root, cs.DATASET_SETTINGS_NAME), root, traj,
             "--vocab", str(cs.SETTINGS / cs.DATASET_VOCAB)]
     for flag, path in files.items():
         argv += [flag, path]
+    if prof.get("realtime"):
+        argv.append("--realtime")
     t_start = time.perf_counter()
     datasets.main(argv)
     seconds = time.perf_counter() - t_start
@@ -112,13 +128,29 @@ def run(kind, seed, out):
     (ate,) = evaluate_sequences([(kind, traj, os.path.join(root, cs.DATASET_GT_NAME))],
                                 max_dt=cs.SYSTEM_WORLD_MAX_DT)
     summary = cs.system_world_summary(frames.records, meter.steps, syst, ate)
+    state2 = [r["t"] for r in frames.records if r["imu_state"] >= 2]
     summary.update(kind=kind, seed=seed, digest=digest, fetches_by_module=dict(fetches),
-                   polish_kf_counts=built["polishes"], seconds=seconds)
+                   polish_kf_counts=built["polishes"], seconds=seconds,
+                   imu_state2_t=state2[0] if state2 else None, end_t=frames.records[-1]["t"])
     print(json.dumps({"mapper_steps": [(m["frame"], m["kf"], m["initial"], round(m["host_ms"], 1),
                                         m["fetches"]) for m in meter.steps]}), flush=True)
     print(json.dumps(summary), flush=True)
     with open(os.path.join(out, f"{kind}_s{seed}.json"), "w") as f:
         json.dump(summary, f)
+
+
+def collect(out, kinds):
+    """Merges the summaries OUT/<profile>_s<seed>.json of `kinds` into RUNS."""
+    record = json.load(open(RUNS)) if os.path.exists(RUNS) else {}
+    for kind in kinds:
+        for name in sorted(os.listdir(out)):
+            if name.startswith(kind + "_s") and name.endswith(".json"):
+                with open(os.path.join(out, name)) as f:
+                    s = json.load(f)
+                record.setdefault(kind, {})[str(s["seed"])] = s
+    with open(RUNS, "w") as f:
+        json.dump(record, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def count_pixels(pngs_dir, out):
@@ -130,7 +162,8 @@ def count_pixels(pngs_dir, out):
     import chip_smoke as cs
 
     for kind_dir in sorted(p for p in os.scandir(pngs_dir) if p.is_dir()):
-        image_dir = os.path.join(out, kind_dir.name, cs.DATASET_LAYOUTS[kind_dir.name][1])
+        layout = cs.DATASET_LAYOUTS[cs.DATASET_PROFILES[kind_dir.name]["layout"]]
+        image_dir = os.path.join(out, kind_dir.name, layout[1])
         for name in sorted(os.listdir(kind_dir.path)):
             with open(os.path.join(kind_dir.path, name), "rb") as f:
                 other = cs.png_gray_pixels(f.read()).astype(np.int32)
@@ -151,12 +184,19 @@ def main():
     ap.add_argument("--count-pixels", default=None, metavar="DIR",
                     help="count the pixels of the PNGs under DIR/<kind>/ that differ from this "
                     "host's render, and run nothing")
+    ap.add_argument("--collect", default=None, metavar="DIR",
+                    help="merge the summaries of --kinds under DIR into "
+                    "experiments/port_profiles_runs.json, and run nothing")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)  # KIND:SEED, a child's run
     args = ap.parse_args()
     out = args.out or tempfile.mkdtemp()
     if args.one:
         kind, seed = args.one.split(":")
         run(kind, int(seed), out)
+        return
+
+    if args.collect:
+        collect(args.collect, args.kinds.split(","))
         return
 
     import chip_smoke as cs
@@ -197,6 +237,7 @@ def main():
                 path = os.path.join(out, f"{key[0]}_s{key[1]}.json")
                 print(f"{key[0]} seed {key[1]}: rc {proc.returncode}; "
                       + (open(path).read() if os.path.exists(path) else "no summary"), flush=True)
+    collect(out, kinds)
     sys.exit(max(rcs.values(), default=0))
 
 

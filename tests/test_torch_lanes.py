@@ -1,9 +1,11 @@
-"""chip_smoke.py's helpers for its last two paths, on the CPU: the three
-lanes that run paths 13 and 14 side by side (`Lane`, `to_device`), the
-PNG reader that counts a host's differing pixels (`png_gray_pixels`
-against `png_gray`), the copy of differing PNGs (`profile_digest_check`)
-and the gate on K2's launches at KITTI's 1,536 features
-(`profile_k2_checks`)."""
+"""chip_smoke.py's helpers for its last three paths, on the CPU: the
+lanes that run paths 13-15 side by side (`Lane`, `to_device`), the PNG
+reader that counts a host's differing pixels (`png_gray_pixels` against
+`png_gray`), the copy of differing PNGs (`profile_digest_check`), the gate
+on K2's launches at KITTI's 1,536 features and at path 15's 1,024
+(`profile_k2_checks`), and path 15's shape gate (`profile_shape_checks`:
+the camera, the extractor's atlas, K1's windows against each profile's
+settings and the port's extractor)."""
 
 import collections
 import json
@@ -74,3 +76,41 @@ def test_digest_check_copies_differing_pngs(tmp_path, monkeypatch):
     assert same and differ == [first]
     copied = cs.png_gray_pixels((tmp_path / "out" / "tumvi" / first).read_bytes())
     assert copied.dtype == np.uint16 and copied.shape == (512, 512)
+
+
+K2_1024 = [(1024, 1024)] * 4 + [(4096, 1024), (1024, 4096)] * 2
+
+
+@pytest.mark.parametrize("shapes, ok", [(K2_1024, True), (K2_OK, False)])
+def test_profile_k2_gate_at_the_profiles_feature_count(shapes, ok):
+    assert (cs.profile_k2_checks(shapes, 1024, "phone") == []) == ok
+
+
+def _shape_run(profile, atlas=None, k=None):
+    """A `profiles` run's fields that `profile_shape_checks` reads, at the
+    shapes the profile's settings and the port's extractor give."""
+    from monoorbslam3_tpu_torch import config
+    from monoorbslam3_tpu_torch.ops.orb import OrbExtractor
+
+    s = config.load_settings(str(cs.SETTINGS / cs.DATASET_PROFILES[profile]["settings"]))
+    w, h, n = (int(s["Camera"]["Width"]), int(s["Camera"]["Height"]),
+               int(s["ORB"]["Features"]))
+    ext = OrbExtractor(h, w, n_features=n, device="cpu")
+    atlas = atlas or (ext.atlas_h, ext.atlas_w)
+    k = k or n
+    return dict(summary=dict(width=w, height=h, extractor=dict(
+                    width=ext.width, height=ext.height, n_features=ext.n_features,
+                    atlas=[ext.atlas_h, ext.atlas_w])),
+                k1=[(torch.zeros(atlas), torch.zeros(k, dtype=torch.int32),
+                     torch.zeros(k, dtype=torch.int32))],
+                k2=[(torch.zeros((r, 8)), torch.zeros((c, 8))) for r, c in
+                    [(n, n)] * 4 + [(4096, n), (n, 4096)] * 2])
+
+
+@pytest.mark.parametrize("profile", cs.VIO_PROFILES)
+def test_profile_shape_gate(profile):
+    assert cs.profile_shape_checks(profile, _shape_run(profile)) == []
+    assert cs.profile_shape_checks(profile, _shape_run(profile, atlas=(64, 64)))
+    assert cs.profile_shape_checks(profile, _shape_run(profile, k=1536))
+    if profile == "phone":  # the largest atlas: 3379x1536 f32, 20.8 MB
+        assert _shape_run(profile)["summary"]["extractor"]["atlas"] == [3379, 1536]
