@@ -446,6 +446,8 @@ JAX_SYSTEM_WORLD = dict(n_frames=600, ok_frames=599, ok_ratio=599 / 600, n_lost=
 # the resume run tracks again within 5 frames and keeps an OK ratio of 0.9
 SW_OK_SLACK, SW_ATE_FACTOR, SW_KF_RTOL = 0.05, 2.0, 0.30
 SW_RESUME_RECOVER, SW_RESUME_OK_MIN = 5, 0.9
+# the outcome path 9 prints beside JAX_SYSTEM_WORLD's (the same seed and draws)
+SW_SEED_KEYS = ("ok_frames", "imu_init_t", "kf_ate_m", "scale_err", "n_kf", "n_points")
 # the vocabulary gate is live: every valid keyframe feature carries a node
 # id into the triangulation searches (transform assigns one to every valid
 # descriptor)
@@ -4795,6 +4797,12 @@ def main(argv=None) -> int:
           f"{JAX_SYSTEM_WORLD['n_points']}); frame p50 {sw['frame_ms']['p50']:.1f} ms, p99 "
           f"{sw['frame_ms']['p99']:.1f} ms; mapper step p50 {sw['mapper_ms']['p50']:.1f} ms, "
           f"mean {sw['mapper_ms']['mean']:.1f} ms")
+    # the tracker of either package draws its bootstrap's RANSAC samples
+    # from seed 0's key (the port through utils.prng): both runs start from
+    # the same samples
+    print("system world, seed 0 in both packages (the same RANSAC draws): " + json.dumps(
+        {"device": card, "port": {k: sw[k] for k in SW_SEED_KEYS},
+         "jax_cpu": {k: JAX_SYSTEM_WORLD[k] for k in SW_SEED_KEYS}}))
     for label, a in zip(K2_CALLS, sw_k2):
         got = match_pallas._match_rows_cuda(*a)
         torch.cuda.synchronize()

@@ -34,6 +34,7 @@ from ..models.imu import GRAVITY_W as G_W, ImuBuffer
 from ..ops import matching
 from ..ops.match_pallas import projected_match
 from ..ops.twoview import draw_samples, reconstruct_two_views
+from ..utils import prng
 from ..utils.fetch import fetch
 from .frame import Frame, make_frame
 
@@ -280,8 +281,8 @@ class Tracking:
     unless the caller built `Problems(..., device="cpu")`); the camera and
     the calibration lie there too. Its fetches count on `problems.syncs`.
     Every knob and default of the JAX package's `Tracking`, plus `seed`,
-    which seeds the RANSAC sample generator (on the device) as the JAX
-    package seeds its key."""
+    the JAX package's RANSAC key (`utils.prng`): a bootstrap draws the
+    samples the JAX package's tracker of the same seed draws."""
 
     def __init__(self, camera, calib, store, problems, config=None):
         self.camera = camera
@@ -357,8 +358,7 @@ class Tracking:
         # IMU timeline anchor for the first frame after a checkpoint resume
         self.resume_prev_t: float | None = None
         self._imu_log: list = []  # rolling (t, gx..az) rows for init replay
-        self._ransac_gen = torch.Generator(device=self.device)
-        self._ransac_gen.manual_seed(cfg.get("seed", 0))
+        self._ransac_key = prng.prng_key(cfg.get("seed", 0))
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -484,9 +484,12 @@ class Tracking:
         pair_valid[: len(sel)] = ok0_all[sel] & ok1_all[idx[sel]]
         K = np.array([[c["fx"], 0.0, c["cx"]], [0.0, c["fy"], c["cy"]], [0.0, 0.0, 1.0]],
                      np.float32)
-        xy1_t, xy2_t, valid_t, K_t = upload_inputs((xy1, xy2, pair_valid, K), self.device)
-        out = reconstruct_two_views(xy1_t, xy2_t, valid_t, K_t,
-                                    draw_samples(valid_t, 200, self._ransac_gen))
+        # the JAX package's split and draw, on the host beside the mask,
+        # uploaded with the pair
+        self._ransac_key, sub = prng.split(self._ransac_key)
+        xy1_t, xy2_t, valid_t, K_t, idx_t = upload_inputs(
+            (xy1, xy2, pair_valid, K, draw_samples(sub, pair_valid)), self.device)
+        out = reconstruct_two_views(xy1_t, xy2_t, valid_t, K_t, idx_t)
         out = self._fetch({k: out[k] for k in ("success", "R", "t", "points", "good")})
         if not bool(out["success"]):
             return

@@ -9,11 +9,11 @@ E-decomposition hypotheses form one 12-slot motion bank that CheckRT
 triangulates and scores against every match at once; the family is chosen
 by RH = SH / (SH + SF) > 0.45.
 
-The RANSAC samples are an input. The JAX package draws them with
-`jax.random.choice` from a key the tracker splits per attempt, which torch
-cannot reproduce: `reconstruct_two_views` takes the [n_iters, 8] index
-tensor, and `draw_samples` draws one with replacement from an explicit
-`torch.Generator` on the tensors' device. Everything runs on the inputs'
+The RANSAC samples are an input. The JAX package draws them inside its
+jitted bootstrap with `jax.random.choice` from a key the tracker splits
+per attempt; `draw_samples` draws the same indices on the host
+(`utils.prng`, bit for bit), and `reconstruct_two_views` takes the
+[n_iters, 8] index tensor. Everything runs on the inputs'
 device as plain torch; the batched SVDs (`torch.linalg.svd` has no
 variant without its host-side convergence check) are the only host syncs
 of an attempt on the card. Inverses, determinants, the winner's selection
@@ -23,7 +23,10 @@ and the constants avoid theirs (`inv_ex`, closed-form 3x3 determinants,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..utils import prng
 
 CHI2_H = 5.991
 CHI2_F = 3.841
@@ -293,22 +296,19 @@ def check_rt(R, t, xy1, xy2, valid, K, sigma2=1.0, th_chi2=4.0):
     return n_good, X, good, parallax_cos
 
 
-def draw_samples(valid, n_iters=200, generator=None):
-    """RANSAC's [n_iters, 8] sample indices (int64), drawn with replacement
-    over the valid matches with equal probability (the JAX package's
-    `jax.random.choice(key, N, (n_iters, 8), p=valid / n_valid)`), by
-    `torch.multinomial` from `generator` on `valid`'s device. With no valid
-    match every index is equally likely (no host check)."""
-    w = valid.to(torch.float32)
-    w = torch.where(torch.sum(w) > 0, w, torch.ones_like(w))
-    idx = torch.multinomial(w, n_iters * 8, replacement=True, generator=generator)
-    return idx.reshape(n_iters, 8)
+def draw_samples(key, valid, n_iters=200):
+    """RANSAC's [n_iters, 8] sample indices (numpy int64) under the JAX
+    PRNG key `key` (uint32 [2], `utils.prng`) over the host mask `valid`
+    [N]: the JAX package's `jax.random.choice(key, N, (n_iters, 8),
+    p=valid / n_valid)`, bit for bit. With no valid match every index is
+    0, as JAX's."""
+    return prng.choice_with_p(key, np.asarray(valid, bool), (n_iters, 8))
 
 
 def reconstruct_two_views(xy1, xy2, valid, K, sample_idx, sigma2=1.0, n_iters=200):
     """Full two-view bootstrap (reference Reconstruct, .cpp:14-83) from the
-    RANSAC samples `sample_idx` [n_iters, 8] (`draw_samples`, or the JAX
-    package's draws in a parity test).
+    RANSAC samples `sample_idx` [n_iters, 8] (`draw_samples`, the JAX
+    package's draws).
 
     xy1, xy2: [N, 2] ideal pixels of the matches; valid: [N] bool; K: the
     ideal intrinsics [3, 3]. Returns a dict of tensors on the inputs'

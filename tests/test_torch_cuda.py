@@ -425,14 +425,16 @@ def test_inertial_pose_lm_card_matches_cpu(cuda):
 def test_two_view_bootstrap_on_the_card(cuda):
     """reconstruct_two_views on the card against the CPU on the same RANSAC
     samples (a general scene at 4-12 m, 0.3 px noise, 20 outliers, the
-    samples drawn on the card by `draw_samples`): the same success and
+    samples `draw_samples` draws on the host under the JAX key of seed 0,
+    uploaded to the card): the same success and
     family, R within 1e-4 rad, n_good within 1, good equal in 99% of the
     rows. Its host syncs under the sync debug mode: the two of each of the
     five batched SVDs at most (`torch.linalg.svd` reads its status back),
-    none from the draws, the winner's selection or the constants."""
+    none from the winner's selection or the constants."""
     import warnings
 
     from monoorbslam3_tpu_torch.ops import twoview
+    from monoorbslam3_tpu_torch.utils import prng
 
     rng = np.random.default_rng(11)
     K = np.array([[450.0, 0.0, 376.0], [0.0, 450.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
@@ -447,8 +449,7 @@ def test_two_view_bootstrap_on_the_card(cuda):
     xy1, xy2 = (np.concatenate([u, np.zeros((64, 2))]).astype(np.float32) for u in (uv1, uv2))
     valid = np.concatenate([np.ones(400, bool), np.zeros(64, bool)])
     args = [torch.as_tensor(a, device=cuda) for a in (xy1, xy2, valid, K)]
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    idx = twoview.draw_samples(args[2], 200, gen)
+    idx = torch.as_tensor(twoview.draw_samples(prng.prng_key(0), valid, 200), device=cuda)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

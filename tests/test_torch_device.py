@@ -86,13 +86,15 @@ def test_tracker_and_mapper_run_on_the_facades_device(monkeypatch):
     """`Tracking` and `LocalMapping` take no device of their own: they run
     on `problems.device`, the card unless the caller built the façade on the
     CPU. Without a card the default façade raises, so neither can be built
-    on the card; on a CPU façade both (the tracker's RANSAC generator
-    included) live on the CPU. The two-view functions follow their inputs'
-    device."""
+    on the card; on a CPU façade both live on the CPU, and the tracker's
+    RANSAC draws (from its host key, the JAX package's) go up to it. The
+    two-view functions follow their inputs' device."""
+    from monoorbslam3_tpu_torch.backend.problems import upload_inputs
     from monoorbslam3_tpu_torch.frontend.local_mapping import LocalMapping
     from monoorbslam3_tpu_torch.frontend.tracking import Tracking
     from monoorbslam3_tpu_torch.models.map_state import MapStore
     from monoorbslam3_tpu_torch.ops import twoview
+    from monoorbslam3_tpu_torch.utils import prng
 
     for cls in (Tracking, LocalMapping):
         assert "device" not in inspect.signature(cls.__init__).parameters
@@ -106,10 +108,14 @@ def test_tracker_and_mapper_run_on_the_facades_device(monkeypatch):
     tracker = Tracking(cam, calib, MapStore(max_kf=4, max_pt=16, n_feat=8), problems)
     mapper = LocalMapping(tracker.store, problems, calib, tracker)
     assert tracker.device == mapper.device == problems.device == torch.device("cpu")
-    assert tracker._ransac_gen.device == torch.device("cpu")
-    valid = torch.ones(16, dtype=torch.bool)
-    idx = twoview.draw_samples(valid, 4, tracker._ransac_gen)
-    assert idx.device == valid.device
+    # the RANSAC key is the JAX package's, on the host; the draws go up
+    # with the pair to the tracker's device
+    assert isinstance(tracker._ransac_key, np.ndarray)
+    np.testing.assert_array_equal(tracker._ransac_key, prng.prng_key(0))
+    valid = np.ones(16, bool)
+    _, sub = prng.split(tracker._ransac_key)
+    valid_t, idx_t = upload_inputs((valid, twoview.draw_samples(sub, valid, 4)), tracker.device)
+    assert idx_t.device == valid_t.device == tracker.device and idx_t.shape == (4, 8)
 
 
 def test_system_entry_points_raise_without_a_card(monkeypatch):

@@ -62,3 +62,32 @@ def test_walk_finds_imports():
            "    from . import sibling\n")
     assert sorted(n for n in imported_names(src) if _forbidden(n)) == [
         "jax.numpy", "jaxlib.xla", "monoorbslam3_tpu.utils"]
+
+
+# experiments/port_lockstep_jax.py runs each package in a process of its
+# own: every part of it but the JAX half's function runs the port's half
+LOCKSTEP = "experiments/port_lockstep_jax.py"
+LOCKSTEP_JAX_HALF = ("run_jax",)
+
+
+def test_lockstep_port_half_imports_no_jax():
+    """The lock-step harness's port half (its module level and every
+    function but `run_jax`) imports nothing of JAX, and importing the
+    module loads none of it (beyond what the interpreter had loaded); its
+    JAX half does import the JAX package."""
+    import subprocess
+    import sys
+
+    tree = ast.parse((ROOT / LOCKSTEP).read_text())
+    halves = {True: [], False: []}
+    for node in tree.body:
+        jax_half = isinstance(node, ast.FunctionDef) and node.name in LOCKSTEP_JAX_HALF
+        halves[jax_half] += imported_names(ast.unparse(node))
+    assert not [n for n in halves[False] if _forbidden(n)]
+    assert any(_forbidden(n) for n in halves[True])
+    code = ("import sys; before = set(sys.modules); import experiments.port_lockstep_jax; "
+            "print(sorted(m for m in set(sys.modules) - before "
+            f"if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -8,10 +8,11 @@ packages.
   `_need_new_keyframe` over a table of cases, both branches of
   `_predict_state`, `_create_keyframe`): exact, on stores seeded by
   `chip_smoke.seeded_store` (bit-identical in both packages).
-- One bootstrap with the RANSAC samples the JAX tracker drew handed to the
-  port (torch cannot reproduce `jax.random`): the same two keyframes, the
-  same points, their states and positions after `initial_optimize` and
-  the depth-1 gauge within 1e-4.
+- One bootstrap, each tracker drawing its own RANSAC samples from seed 0
+  (the port's `utils.prng` draws the JAX tracker's indices): the same
+  samples at every attempt, the same two keyframes, the same points,
+  their states and positions after `initial_optimize` and the depth-1
+  gauge within 1e-4.
 - Tracked frames after it, each tracker on its own chain: the same
   matchers called frame by frame, every frame OK, n_tracked within 2%.
 """
@@ -303,19 +304,24 @@ def _spy(tracker, log):
 
 @pytest.fixture(scope="module")
 def bootstrap(sensors):
-    """Both trackers over the first frames of the stream, the port's RANSAC
-    samples being the JAX tracker's draws (`draw_samples` replaced for the
-    run); after the bootstrap each tracks on its own chain."""
+    """Both trackers over the first frames of the stream, each drawing its
+    own RANSAC samples from its own key of seed 0; the samples of each
+    attempt are recorded (the JAX ones as `jax.random.choice` draws them
+    from the key its call gets, the port's as its call receives them)."""
     n_frames = 8
     jt, tt = trackers(sensors)
-    draws = []
-    orig_rtv = jtr.reconstruct_two_views
+    draws = {"j": [], "t": []}
+    orig_jrtv, orig_trtv = jtr.reconstruct_two_views, ttr.reconstruct_two_views
 
     def jax_rtv(xy1, xy2, valid, K, key, *a, **kw):
         w = np.asarray(valid, np.float32)
         probs = jnp.asarray(w / max(w.sum(), 1.0))
-        draws.append(np.asarray(jax.random.choice(key, len(w), shape=(200, 8), p=probs)))
-        return orig_rtv(xy1, xy2, valid, K, key, *a, **kw)
+        draws["j"].append(np.asarray(jax.random.choice(key, len(w), shape=(200, 8), p=probs)))
+        return orig_jrtv(xy1, xy2, valid, K, key, *a, **kw)
+
+    def torch_rtv(xy1, xy2, valid, K, sample_idx, *a, **kw):
+        draws["t"].append(sample_idx.cpu().numpy())
+        return orig_trtv(xy1, xy2, valid, K, sample_idx, *a, **kw)
 
     jlog, tlog = [], []
     _spy(jt, jlog)
@@ -333,10 +339,8 @@ def bootstrap(sensors):
             if jt.store.n_keyframes() == 2 and "store" not in rec:
                 rec["store"] = copy.deepcopy(jt.store)
     finally:
-        jtr.reconstruct_two_views = orig_rtv
-    queue = list(draws)
-    orig_draw = ttr.draw_samples
-    ttr.draw_samples = lambda valid, n_iters, gen: torch.as_tensor(queue.pop(0))
+        jtr.reconstruct_two_views = orig_jrtv
+    ttr.reconstruct_two_views = torch_rtv
     try:
         for t, feats, imu, _ in _stream(tsim, sensors["tcam"], n_frames):
             n0 = len(tlog)
@@ -348,9 +352,8 @@ def bootstrap(sensors):
             if tt.store.n_keyframes() == 2 and "tstore" not in rec:
                 rec["tstore"] = copy.deepcopy(tt.store)
     finally:
-        ttr.draw_samples = orig_draw
-    rec["draws_left"] = len(queue)
-    rec["n_draws"] = len(draws)
+        ttr.reconstruct_two_views = orig_trtv
+    rec["draws"] = draws
     return rec
 
 
@@ -362,7 +365,8 @@ def _points_by_feature(st):
 
 
 def test_bootstrap_with_the_jax_draws(bootstrap):
-    """The same bootstrap frame on the same RANSAC samples; after
+    """The same bootstrap frame on the same RANSAC samples: the port's own
+    draws of each attempt are the indices the JAX tracker drew. After
     `_create_initial_map` (initial_optimize and the depth-1 gauge): the
     same two keyframes within 1e-4; the same points (CheckRT's good flag
     may flip on a match at its chi2 threshold: at most 1% of them, keyed
@@ -377,7 +381,10 @@ def test_bootstrap_with_the_jax_draws(bootstrap):
     rj, rt = bootstrap["j"], bootstrap["t"]
     boot = [i for i, r in enumerate(rj) if r["state"] == 2][0]
     assert [r["state"] for r in rt[:boot + 1]] == [r["state"] for r in rj[:boot + 1]]
-    assert bootstrap["n_draws"] >= 1 and bootstrap["draws_left"] == 0
+    drawn = bootstrap["draws"]
+    assert len(drawn["j"]) == len(drawn["t"]) >= 1
+    for a, b in zip(drawn["j"], drawn["t"]):
+        np.testing.assert_array_equal(b, a)
     js, ts = bootstrap["store"], bootstrap["tstore"]
     assert js.keyframe_ids() == ts.keyframe_ids() and len(ts.keyframe_ids()) == 2
     for name in ("kf_R", "kf_t"):

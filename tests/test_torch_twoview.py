@@ -21,6 +21,7 @@ import torch
 from monoorbslam3_tpu.ops import twoview as jtv
 from monoorbslam3_tpu.utils import lie as jlie
 from monoorbslam3_tpu_torch.ops import twoview as ttv
+from monoorbslam3_tpu_torch.utils import prng
 
 from tests.test_torch_tracking import one_torch_thread  # noqa: F401  (autouse)
 
@@ -263,37 +264,45 @@ def _truth_gates(out, scene):
 
 
 def test_reconstruct_with_own_draws_holds_the_truth_gates(scene):
-    """The port's own draws (`draw_samples` from seeded generators) hold
-    tests/test_twoview.py's truth gates as often as the JAX package's own
-    draws do. The draws decide: on the general scene the reference itself
-    meets the gates for 9 of keys 0-19 (a winning F whose decomposition
-    triangulates few points, or a motion off by more than the gate), and
-    the JAX package run on the port's draws gives the port's answer. Over
-    20 draws each, the port meets them at most 4 times fewer (about two
-    binomial sigmas at that rate); every planar run meets them."""
+    """The port's own draws (`draw_samples` under the key chain of
+    `utils.prng`) are the JAX package's: for keys 0-19 the indices equal
+    the ones `jax.random.choice` draws from the same key, and the port
+    meets tests/test_twoview.py's truth gates on exactly as many of them as
+    the JAX package (on the general scene the reference itself fails the
+    gates for 9 of the 20 keys: a winning F whose decomposition
+    triangulates few points, or a motion off by more than the gate); every
+    planar run meets them."""
     args = [scene[k] for k in ("xy1", "xy2", "valid")]
-    v = _t(scene["valid"])
     n_port = n_jax = 0
     for k in range(20):
-        idx = ttv.draw_samples(v, N_ITERS, torch.Generator().manual_seed(k))
-        assert idx.shape == (N_ITERS, 8) and bool(v[idx].all())
-        n_port += _truth_gates(ttv.reconstruct_two_views(*(_t(a) for a in args), _t(K), idx),
+        idx = ttv.draw_samples(prng.prng_key(k), scene["valid"], N_ITERS)
+        np.testing.assert_array_equal(idx, _jax_samples(jax.random.PRNGKey(k), scene["valid"]))
+        assert idx.shape == (N_ITERS, 8) and bool(scene["valid"][idx].all())
+        n_port += _truth_gates(ttv.reconstruct_two_views(*(_t(a) for a in args), _t(K), _t(idx)),
                                scene)
         n_jax += _truth_gates(jtv.reconstruct_two_views(*(jnp.asarray(a) for a in args),
                                                         jnp.asarray(K), jax.random.PRNGKey(k)),
                               scene)
-    assert n_port >= n_jax - 4, (n_port, n_jax)
+    assert n_port == n_jax, (n_port, n_jax)
     if scene["planar"]:
         assert n_port == n_jax == 20
 
 
 def test_draw_samples_follows_the_valid_rows_and_the_device():
-    """Draws land on valid rows only, on the mask's device; with no valid
-    row every index may be drawn (no host check, no error)."""
-    gen = torch.Generator().manual_seed(5)
-    v = torch.zeros(64, dtype=torch.bool)
+    """Draws land on valid rows only, as host int64 indices that
+    `upload_inputs` puts on the pair's device with the pair; with no valid
+    row every index is 0, as JAX's `choice` gives it."""
+    from monoorbslam3_tpu_torch.backend.problems import upload_inputs
+
+    key = prng.prng_key(5)
+    v = np.zeros(64, bool)
     v[10:20] = True
-    idx = ttv.draw_samples(v, 50, gen)
-    assert idx.device == v.device and ((idx >= 10) & (idx < 20)).all()
-    idx0 = ttv.draw_samples(torch.zeros(64, dtype=torch.bool), 50, gen)
-    assert idx0.shape == (50, 8) and int(idx0.min()) >= 0 and int(idx0.max()) < 64
+    idx = ttv.draw_samples(key, v, 50)
+    assert isinstance(idx, np.ndarray) and idx.dtype == np.int64 and idx.shape == (50, 8)
+    assert ((idx >= 10) & (idx < 20)).all()
+    np.testing.assert_array_equal(idx, np.asarray(jax.random.choice(
+        jax.random.PRNGKey(5), 64, shape=(50, 8), p=jnp.asarray(v / 10.0, jnp.float32))))
+    valid_t, idx_t = upload_inputs((v, idx), torch.device("cpu"))
+    assert idx_t.device == valid_t.device and bool((idx_t == torch.as_tensor(idx)).all())
+    idx0 = ttv.draw_samples(key, np.zeros(64, bool), 50)
+    assert idx0.shape == (50, 8) and not idx0.any()
